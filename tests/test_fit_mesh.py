@@ -1,4 +1,4 @@
-"""Inverse rendering beyond the toy corner (VERDICT r2 weak #6): recover
+"""Inverse rendering beyond the toy corner: recover
 a sphere center + diffuse in a BVH MESH scene at depth >= 1, through the
 chunked-gradient step (rcfg.ray_chunk) with soft silhouette temps."""
 

@@ -1,5 +1,5 @@
-"""Mesh-vertex gradients (fit.PARAM_PATHS 'mesh_verts') — VERDICT r4
-missing #3: the one differentiable class that didn't exist.
+"""Mesh-vertex gradients (fit.PARAM_PATHS 'mesh_verts') — the
+one differentiable class that didn't exist before.
 
 Mechanism under test (ops/bvh.bind_verts): the BVH's epilogue triangle
 table is re-derived differentiably from the CURRENT scene mesh verts

@@ -74,7 +74,7 @@ def test_scene_sharded_hit_matches(mesh42):
 
 
 def test_render_tiled_bvh_matches(mesh8):
-    """Config-5 shape under shard_map: BVH traversal (XLA kernel) inside
+    """Config-5 shape under shard_map: BVH walk (XLA loop) inside
     the tile-sharded renderer must match the single-device image."""
     from unity_raytracer_tpu.ops import bvh as bvhmod
 
@@ -88,37 +88,36 @@ def test_render_tiled_bvh_matches(mesh8):
 
 
 def test_render_tiled_pallas_interpret_matches(mesh8):
-    """The REAL packet kernel (mk4, Pallas interpreter on CPU) under
-    shard_map — the flagship distributed path end to end."""
+    """The GPU walk kernel (Pallas interpreter on CPU) under shard_map,
+    bounce chain (scan mode) — the flagship distributed path end to end
+    — against the single-device XLA walk."""
     from unity_raytracer_tpu.ops import bvh as bvhmod
 
     scene, cam, cfg = mesh_scene(100, width=16, height=16)
-    cfg = resolve_mode(scene, cfg.with_(use_bvh=True, kernel="pallas",
+    cfg = resolve_mode(scene, cfg.with_(use_bvh=True, kernel="interpret",
                                         max_bounces=1))
-    packed = bvhmod.prepare_bvh(scene, cfg)
-    ref = np.asarray(render(scene, cam, cfg.with_(kernel="xla"),
-                            bvh=packed))
+    assert cfg.mode == "scan"
+    bvh = bvhmod.prepare_bvh(scene, cfg)
+    ref = np.asarray(render(scene, cam, cfg.with_(kernel="xla"), bvh=bvh))
     out = np.asarray(shardmod.render_tiled(scene, cam, cfg, mesh8,
-                                           bvh=packed))
+                                           bvh=bvh))
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_render_tiled_mega_interpret_matches(mesh8):
-    """The fused segment MEGAKERNEL under shard_map (interpret on CPU):
-    the exact flagship-bench code path, tile-sharded."""
+    """The GPU walk kernel (Pallas interpreter on CPU) under shard_map
+    on the TREE path (level-synchronous wavefront with fork compaction)
+    against the single-device XLA walk."""
     from unity_raytracer_tpu.ops import bvh as bvhmod
 
     scene, cam, cfg = mesh_scene(100, width=16, height=16)
-    cfg = resolve_mode(scene, cfg.with_(use_bvh=True, kernel="mega",
-                                        max_bounces=1, tile_r=32,
-                                        block_size=4))
-    packed = bvhmod.prepare_bvh(scene, cfg)
-    assert packed.leafmeta is not None
-    ref = np.asarray(render(scene, cam, cfg.with_(kernel="xla"),
-                            bvh=packed))
+    cfg = cfg.with_(use_bvh=True, kernel="interpret", max_bounces=1,
+                    mode="tree", block_size=4)
+    bvh = bvhmod.prepare_bvh(scene, cfg)
+    ref = np.asarray(render(scene, cam, cfg.with_(kernel="xla"), bvh=bvh))
     out = np.asarray(shardmod.render_tiled(scene, cam, cfg, mesh8,
-                                           bvh=packed))
-    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
+                                           bvh=bvh))
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_scene_sharded_non_replication(mesh42):
@@ -286,15 +285,15 @@ def test_sharded_train_step_matches_single_device(mesh8):
 
 
 def test_sharded_fit_convergence_matches_single(mesh8):
-    """Config-5 in miniature (VERDICT r3 next-step #5): a tile-sharded
-    FIT — BVH + packet kernel under shard_map + grad-psum Adam — run for
+    """Config-5 in miniature: a tile-sharded FIT — BVH + the walk
+    kernel (interpreted) under shard_map + grad-psum Adam — run for
     N steps on 8 virtual devices; the loss TRAJECTORY must match the
     single-device loop step for step, and it must actually descend."""
     from unity_raytracer_tpu.fit import set_params
     from unity_raytracer_tpu.ops import bvh as bvhmod
 
     scene, cam, cfg = mesh_scene(100, width=16, height=16)
-    cfg = resolve_mode(scene, cfg.with_(use_bvh=True, kernel="pallas",
+    cfg = resolve_mode(scene, cfg.with_(use_bvh=True, kernel="interpret",
                                         max_bounces=1))
     packed = bvhmod.prepare_bvh(scene, cfg)
     target = render(scene, cam, cfg, bvh=packed)

@@ -1,11 +1,11 @@
 """Record-replay backward (ops/replay.py): forward parity vs the
-megakernel and gradient parity vs the composed differentiable path.
+composed forward and gradient parity vs the composed differentiable path.
 
 The replay freezes the discrete decisions (winner ids, occlusion bits)
 and recomputes shading differentiably; at soft temps 0 the composed
 path's gradients make exactly the same freeze (stop_gradient traversal,
-fixed argmin winner), so grads must agree to fp noise. Runs the Pallas
-interpreter on CPU.
+fixed argmin winner), so grads must agree to fp noise. Runs the XLA walk
+on CPU.
 """
 
 import numpy as np
@@ -56,7 +56,7 @@ def scene_cam():
 
 
 CFG = RenderConfig(max_bounces=2, background=(0.04, 0.05, 0.07),
-                   use_bvh=True, mode="scan", block_size=8, tile_r=64)
+                   use_bvh=True, mode="scan", block_size=8)
 
 
 def _rays(cam, cfg):
@@ -65,39 +65,37 @@ def _rays(cam, cfg):
 
 def test_replay_forward_matches_mega(scene_cam):
     scene, cam = scene_cam
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam, CFG)
-    rad_mega = np.asarray(trace_radiance(
-        scene, o, d, CFG.with_(kernel="mega"), bvh=packed))
-    rad_rep = np.asarray(rp.trace_radiance_replay(
-        scene, o, d, CFG.with_(kernel="mega"), packed))
+    rad_ref = np.asarray(trace_radiance(scene, o, d, CFG, bvh=bvh))
+    rad_rep = np.asarray(rp.trace_radiance_replay(scene, o, d, CFG, bvh))
     assert np.isfinite(rad_rep).all()
-    np.testing.assert_allclose(rad_rep, rad_mega, rtol=2e-4, atol=2e-4)
-    assert rad_mega.std() > 1.0  # scene actually shades something
+    np.testing.assert_allclose(rad_rep, rad_ref, rtol=2e-4, atol=2e-4)
+    assert rad_ref.std() > 1.0  # scene actually shades something
 
 
 def test_replay_grads_match_composed(scene_cam):
     """Grad parity vs jax.grad through the composed path (kernel='xla'
     BVH traversal + differentiable winner re-derivation) at temps 0,
-    for the megakernel-supported parameter classes."""
+    for the parameter classes the replay differentiates."""
     scene, cam = scene_cam
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam, CFG)
     names = ("sphere_centers", "sphere_radius_sq", "sphere_diffuse",
              "sphere_specular", "sphere_mirror", "tri_verts",
              "tri_diffuse", "light_positions", "light_intensities")
     params = get_params(scene, names)
     target = jax.lax.stop_gradient(trace_radiance(
-        scene, o, d, CFG.with_(kernel="xla"), bvh=packed)) * 0.9
+        scene, o, d, CFG.with_(kernel="xla"), bvh=bvh)) * 0.9
 
     def composed_loss(p):
         s = set_params(scene, p)
-        rad = trace_radiance(s, o, d, CFG.with_(kernel="xla"), bvh=packed)
+        rad = trace_radiance(s, o, d, CFG.with_(kernel="xla"), bvh=bvh)
         return jnp.mean((rad - target) ** 2)
 
     loss_c, g_c = jax.value_and_grad(composed_loss)(params)
     loss_r, g_r = rp.replay_value_and_grad(
-        scene, params, o, d, target, CFG.with_(kernel="mega"), packed)
+        scene, params, o, d, target, CFG, bvh)
 
     np.testing.assert_allclose(float(loss_r), float(loss_c),
                                rtol=1e-4, atol=1e-6)
@@ -115,10 +113,10 @@ def test_replay_grads_match_composed(scene_cam):
 
 def test_replay_records_shapes(scene_cam):
     scene, cam = scene_cam
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam, CFG)
     acc, (rt, rn, rmat, rocc) = rp.trace_records(
-        scene, o, d, CFG.with_(kernel="mega"), packed)
+        scene, o, d, CFG, bvh)
     B, N = CFG.max_bounces + 1, o.shape[0]
     assert rt.shape == (B, N) and rn.shape == (B, N, 3)
     assert rmat.shape == (B, N) and rocc.shape == (B, N)
@@ -134,38 +132,32 @@ def test_replay_records_shapes(scene_cam):
 
 
 def test_replay_shipped_knobs_with_light_cull(scene_cam):
-    """Replay parity on the shipped flagship knob set (56-tri 4-row
-    leaves, per-light walks, walk_unroll=2) WITH light_cull active:
-    forward must match the megakernel (whose records reflect the culled
-    queries) and grads must match the composed path under the same gate
-    (VERDICT r3 next-step #6)."""
+    """Replay parity with fat leaves WITH light_cull active: the
+    forward must match the composed forward (the records reflect the
+    culled queries) and grads must match the composed path under the
+    same gate."""
     scene, cam = scene_cam
-    # bvh_leaf 56 stands in for the shipped 98 (identical code path,
-    # smaller static unroll — the interpreter can't run 98 in CI time)
-    cfg = CFG.with_(bvh_leaf=56, walk_unroll=2, fuse_shadows=False,
-                    occ_mode="sort", light_cull=2.0)
-    packed = bvhmod.prepare_bvh(scene, cfg.with_(kernel="mega"))
-    assert packed.rows_per_leaf == 4
+    cfg = CFG.with_(bvh_leaf=8, light_cull=2.0)
+    bvh = bvhmod.prepare_bvh(scene, cfg)
+    assert bvh.leaf_size == 8
     o, d = _rays(cam, cfg)
-    rad_mega = np.asarray(trace_radiance(
-        scene, o, d, cfg.with_(kernel="mega"), bvh=packed))
-    rad_rep = np.asarray(rp.trace_radiance_replay(
-        scene, o, d, cfg.with_(kernel="mega"), packed))
-    np.testing.assert_allclose(rad_rep, rad_mega, rtol=2e-4, atol=2e-4)
+    rad_ref = np.asarray(trace_radiance(scene, o, d, cfg, bvh=bvh))
+    rad_rep = np.asarray(rp.trace_radiance_replay(scene, o, d, cfg, bvh))
+    np.testing.assert_allclose(rad_rep, rad_ref, rtol=2e-4, atol=2e-4)
 
     names = ("sphere_centers", "sphere_diffuse", "light_intensities")
     params = get_params(scene, names)
     target = jax.lax.stop_gradient(trace_radiance(
-        scene, o, d, cfg.with_(kernel="xla"), bvh=packed)) * 0.9
+        scene, o, d, cfg.with_(kernel="xla"), bvh=bvh)) * 0.9
 
     def composed_loss(p):
         s = set_params(scene, p)
-        rad = trace_radiance(s, o, d, cfg.with_(kernel="xla"), bvh=packed)
+        rad = trace_radiance(s, o, d, cfg.with_(kernel="xla"), bvh=bvh)
         return jnp.mean((rad - target) ** 2)
 
     loss_c, g_c = jax.value_and_grad(composed_loss)(params)
     loss_r, g_r = rp.replay_value_and_grad(
-        scene, params, o, d, target, cfg.with_(kernel="mega"), packed)
+        scene, params, o, d, target, cfg, bvh)
     np.testing.assert_allclose(float(loss_r), float(loss_c),
                                rtol=1e-4, atol=1e-6)
     for k in names:
@@ -177,14 +169,14 @@ def test_replay_shipped_knobs_with_light_cull(scene_cam):
 
 
 def test_replay_live_prefix_exact(scene_cam):
-    """The static live-segment prefix (the r4 replacement for the
-    OOM-prone dynamic cond skip) must reproduce the full replay
+    """The static live-segment prefix (in place of a
+    dynamic cond skip, which keeps both branches' residuals) must reproduce the full replay
     EXACTLY when k = live_depth(records)."""
     scene, cam = scene_cam
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam, CFG)
-    _, recs = rp.trace_records(scene, o, d, CFG.with_(kernel="mega"),
-                               packed)
+    _, recs = rp.trace_records(scene, o, d, CFG,
+                               bvh)
     k = rp.live_depth(recs)
     assert 1 <= k <= CFG.max_bounces + 1
     full = np.asarray(rp.replay_radiance(scene, o, d, recs, CFG))

@@ -2,14 +2,14 @@
 silhouette-fitting fwd+bwd path.
 
 Claims under test (module docstring of replay_radiance_soft):
-* forward VALUE == the hard megakernel image exactly (straight-through);
+* forward VALUE == the hard forward image exactly (straight-through);
 * gradients == the composed soft path wherever no MESH occluder sits in
   a soft band (sphere/loose terms are recomputed exactly; mesh facts are
   frozen) — proven on a scene whose mesh cannot occlude anything;
 * on a mesh-shadowed scene the gradients are finite, nonzero, and the
   path drives a fit downhill.
 
-Runs the Pallas interpreter on CPU.
+Runs the XLA walk on CPU.
 """
 
 import numpy as np
@@ -44,13 +44,13 @@ from unity_raytracer_tpu.utils.config import DiffConfig, RenderConfig
 SOFT = DiffConfig(soft_shadow_temp=1.0, soft_hit_temp=0.1,
                   straight_through=True)
 CFG = RenderConfig(max_bounces=2, background=(0.04, 0.05, 0.07),
-                   use_bvh=True, mode="scan", block_size=8, tile_r=64,
+                   use_bvh=True, mode="scan", block_size=8,
                    diff=SOFT)
 
 
 def _build(mesh_center):
     """Two spheres (one mirror) + ground + 2 lights + an icosphere mesh
-    at ``mesh_center`` (the megakernel path needs a mesh BVH)."""
+    at ``mesh_center`` (mesh records need a mesh BVH)."""
     b = SceneBuilder()
     v, f = meshgen.icosphere(subdivisions=2, radius=2.0,
                              center=mesh_center)
@@ -98,13 +98,12 @@ def _rays(cam):
 
 def test_soft_forward_equals_hard_mega(shadowed):
     scene, cam = shadowed
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam)
     hard = np.asarray(trace_radiance(
-        scene, o, d, CFG.with_(kernel="mega",
-                               diff=DiffConfig()), bvh=packed))
+        scene, o, d, CFG.with_(diff=DiffConfig()), bvh=bvh))
     soft = np.asarray(rp.trace_radiance_replay_soft(
-        scene, o, d, CFG.with_(kernel="mega"), packed))
+        scene, o, d, CFG, bvh))
     assert np.isfinite(soft).all()
     np.testing.assert_allclose(soft, hard, rtol=2e-4, atol=2e-4)
     assert hard.std() > 1.0
@@ -112,23 +111,23 @@ def test_soft_forward_equals_hard_mega(shadowed):
 
 def test_soft_grads_match_composed_no_mesh_shadow(mesh_aside):
     scene, cam = mesh_aside
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam)
     names = ("sphere_centers", "sphere_radius_sq", "sphere_diffuse",
              "light_positions", "light_intensities")
     params = get_params(scene, names)
     target = jax.lax.stop_gradient(trace_radiance(
-        scene, o, d, CFG.with_(kernel="xla"), bvh=packed)) * 0.9
+        scene, o, d, CFG.with_(kernel="xla"), bvh=bvh)) * 0.9
 
     def composed_loss(p):
         s = set_params(scene, p)
         rad = trace_radiance(s, o, d, CFG.with_(kernel="xla"),
-                             bvh=packed)
+                             bvh=bvh)
         return jnp.mean((rad - target) ** 2)
 
     loss_c, g_c = jax.value_and_grad(composed_loss)(params)
     loss_r, g_r = rp.soft_replay_value_and_grad(
-        scene, params, o, d, target, CFG.with_(kernel="mega"), packed)
+        scene, params, o, d, target, CFG, bvh)
     np.testing.assert_allclose(float(loss_r), float(loss_c),
                                rtol=1e-4, atol=1e-6)
     for k in names:
@@ -145,13 +144,13 @@ def test_soft_grads_finite_and_descend(shadowed):
     silhouette signal, and reduce the loss over a few Adam-free SGD
     steps."""
     scene, cam = shadowed
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam)
     names = ("sphere_centers", "sphere_diffuse")
     true_p = get_params(scene, names)
     # perturbed start; target rendered at the TRUE params
     target = jax.lax.stop_gradient(rp.trace_radiance_replay_soft(
-        scene, o, d, CFG.with_(kernel="mega"), packed))
+        scene, o, d, CFG, bvh))
     params = {
         "sphere_centers": true_p["sphere_centers"]
         + jnp.asarray([[0.3, -0.2, 0.3], [-0.2, 0.1, 0.2]], jnp.float32),
@@ -164,8 +163,8 @@ def test_soft_grads_finite_and_descend(shadowed):
     losses = []
     for _ in range(25):
         loss, g = rp.soft_replay_value_and_grad(
-            scene, params, o, d, target, CFG.with_(kernel="mega"),
-            packed)
+            scene, params, o, d, target, CFG,
+            bvh)
         for k in g:
             assert np.isfinite(np.asarray(g[k])).all(), k
         losses.append(float(loss))
@@ -178,23 +177,23 @@ def test_soft_replay_chunked_matches_unchunked(shadowed):
     """chunk= bounds the replay working set (the 1080p OOM fix); the
     chunked scan-of-vjp loss/grads must equal the unchunked ones."""
     scene, cam = shadowed
-    packed = bvhmod.prepare_bvh(scene, CFG.with_(kernel="mega"))
+    bvh = bvhmod.prepare_bvh(scene, CFG)
     o, d = _rays(cam)
     names = ("sphere_centers", "sphere_diffuse")
     params = get_params(scene, names)
     target = jax.lax.stop_gradient(rp.trace_radiance_replay_soft(
-        scene, o, d, CFG.with_(kernel="mega"), packed))
+        scene, o, d, CFG, bvh))
     # chunked FORWARD matches too
     f_chunk = np.asarray(rp.trace_radiance_replay_soft(
-        scene, o, d, CFG.with_(kernel="mega"), packed, chunk=128))
+        scene, o, d, CFG, bvh, chunk=128))
     np.testing.assert_allclose(f_chunk, np.asarray(target),
                                rtol=1e-6, atol=1e-6)
     l0, g0 = rp.soft_replay_value_and_grad(
-        scene, params, o, d, target * 0.9, CFG.with_(kernel="mega"),
-        packed)
+        scene, params, o, d, target * 0.9, CFG,
+        bvh)
     l1, g1 = rp.soft_replay_value_and_grad(
-        scene, params, o, d, target * 0.9, CFG.with_(kernel="mega"),
-        packed, chunk=128)
+        scene, params, o, d, target * 0.9, CFG,
+        bvh, chunk=128)
     np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
     for kk in names:
         np.testing.assert_allclose(np.asarray(g1[kk]),
@@ -205,13 +204,13 @@ def test_soft_replay_chunked_matches_unchunked(shadowed):
 def test_soft_forward_with_light_cull_matches_mega(shadowed):
     """light_cull under the SOFT record path: the culled min-mode
     records plus the replay's own cull gate must reproduce the culled
-    hard megakernel image exactly (straight-through forward)."""
+    hard forward image exactly (straight-through forward)."""
     scene, cam = shadowed
-    cfg = CFG.with_(kernel="mega", light_cull=2.0)
-    packed = bvhmod.prepare_bvh(scene, cfg)
+    cfg = CFG.with_(light_cull=2.0)
+    bvh = bvhmod.prepare_bvh(scene, cfg)
     o, d = _rays(cam)
     hard = np.asarray(trace_radiance(
-        scene, o, d, cfg.with_(diff=DiffConfig()), bvh=packed))
+        scene, o, d, cfg.with_(diff=DiffConfig()), bvh=bvh))
     soft = np.asarray(rp.trace_radiance_replay_soft(
-        scene, o, d, cfg, packed))
+        scene, o, d, cfg, bvh))
     np.testing.assert_allclose(soft, hard, rtol=2e-4, atol=2e-4)

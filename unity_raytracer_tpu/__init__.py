@@ -1,4 +1,4 @@
-"""unity_raytracer_tpu — a TPU-native differentiable ray-tracing framework.
+"""unity_raytracer_tpu — a differentiable ray-tracing framework on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 ``vectorized-runner/unity-raytracer`` (Unity C#, single-threaded, CPU):
@@ -10,7 +10,8 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
   masked SoA intersection kernels (`ops.intersect`) plus a completed BVH
   (`ops.bvh` — the reference's BVH was unfinished, Data/Collision/BVH.cs:79),
 * everything is differentiable end-to-end (`ops.softvis`, `fit`),
-* and it scales over a TPU device mesh via `parallel` (shard_map + collectives).
+* and it scales over a device mesh via `parallel` (shard_map + collectives);
+  its accelerator is an NVIDIA GPU (`ops/backend.py`).
 
 Import alias convention::
 

@@ -36,9 +36,6 @@ def cmd_render(args):
     if args.bvh:
         cfg = cfg.with_(use_bvh=True)
     cfg = resolve_mode(scene, cfg)
-    # route through prepare_bvh (kernel-aware packed/wide layout) so the
-    # CLI demo renders on the same fast path the benchmark times — a bare
-    # MeshBVH would silently fall back to the XLA traversal on TPU
     bvh = bvhmod.prepare_bvh(scene, cfg) if cfg.use_bvh else None
     t0 = time.perf_counter()
     img = np.asarray(render(scene, cam, cfg, bvh=bvh))
@@ -73,7 +70,7 @@ def cmd_fit(args):
     if args.preset == "three_spheres":
         if getattr(args, "replay", False):
             print("fit: --replay is ignored for the three_spheres toy "
-                  "config (brute force, no megakernel BVH) — using the "
+                  "config (depth 0, nothing to replay) — using the "
                   "composed gradient path", file=sys.stderr)
         # toy config: brute force, depth 0, custom close-up camera
         scene, _, cfg = three_spheres(width=args.size, height=args.size)
@@ -83,13 +80,13 @@ def cmd_fit(args):
                               height=args.size)
         bvh = None
     elif args.replay:
-        # fast path: soft record-replay step (megakernel fwd + replay
-        # bwd) — full depth, no chunking needed
+        # fast path: soft record-replay step (hard forward with records
+        # + differentiable replay bwd) — full preset depth
         scene, cam, cfg = get_preset(args.preset, width=args.size,
                                      height=args.size)
         cfg = resolve_mode(scene, cfg.with_(use_bvh=True))
         from unity_raytracer_tpu.ops import bvh as bvhmod
-        bvh = bvhmod.prepare_bvh(scene, cfg.with_(kernel="mega"))
+        bvh = bvhmod.prepare_bvh(scene, cfg)
     else:
         # any preset (e.g. mesh10k): BVH + chunked/remat gradient step
         scene, cam, cfg = get_preset(args.preset, width=args.size,
@@ -150,8 +147,8 @@ def cmd_dryrun(args):
 def main():
     ap = argparse.ArgumentParser(prog="unity_raytracer_tpu")
     ap.add_argument("--platform", default=None,
-                    help="force jax platform (e.g. cpu, tpu); default: "
-                         "environment's")
+                    help="force the jax platform (cpu or gpu); default: "
+                         "the environment's (JAX_PLATFORMS)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="render a preset to PNG/NPY")
@@ -179,9 +176,9 @@ def main():
     f.add_argument("--ckpt-every", type=int, default=0)
     f.add_argument("--out-dir", default=None)
     f.add_argument("--replay", action="store_true",
-                   help="soft record-replay gradient step (megakernel "
-                        "fwd + differentiable replay bwd) — the fast "
-                        "fitting path; full preset depth, no chunking")
+                   help="soft record-replay gradient step (hard fwd "
+                        "with records + differentiable replay bwd) — the "
+                        "fast fitting path; full preset depth")
     f.set_defaults(fn=cmd_fit)
 
     d = sub.add_parser("dryrun", help="multi-chip dry run on fake devices")
@@ -193,6 +190,8 @@ def main():
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+    from unity_raytracer_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

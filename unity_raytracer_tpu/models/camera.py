@@ -73,11 +73,11 @@ def generate_rays_blocks(cam: Camera, bs: int
                          ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Primary rays emitted directly in bs x bs pixel-block order.
 
-    TPU packet-traversal tiles share one cursor, so lanes must be spatially
-    coherent (utils/swizzle.py). Rather than permuting row-major rays with a
-    gather (measured 0.14-0.18s per [2M,3] take on v5e — more than the
-    traversal itself), the pixel coordinates are computed analytically from
-    the block-ordered lane id with integer ops: zero data movement.
+    Each walk-kernel block steps its rays until its longest walk ends, so
+    neighbouring lanes should walk alike (utils/swizzle.py). Rather than
+    permuting row-major rays with a gather, the pixel coordinates are
+    computed analytically from the block-ordered lane id with integer ops:
+    zero data movement.
 
     The image is padded up to whole blocks (Wp = ceil(W/bs)*bs etc.); pad
     lanes get valid rays through out-of-frame pixel centers (same image
@@ -100,9 +100,7 @@ def generate_rays_blocks(cam: Camera, bs: int
     top_left = center - cam.right * cam.half_h + cam.up * cam.half_v
     xs = (x.astype(jnp.float32) + 0.5) * (2.0 * cam.half_h / w)
     ys = (y.astype(jnp.float32) + 0.5) * (2.0 * cam.half_v / h)
-    # SoA per-component math: normalizing an [N,3] array (reduce +
-    # broadcast along a size-3 minor axis) measured ~5x slower on v5e
-    # than three [N] lanes (scripts/tpu_probe2.py normalize_N3 vs _soa).
+    # SoA per-component math (three [N] lanes, no size-3 minor axis).
     # Operation ORDER matches the original [N,3] formulation bitwise
     # ((top_left + xs*r - ys*u) - pos, then sqrt+divide) so golden images
     # and silhouette-edge pixel decisions are unchanged.

@@ -139,13 +139,7 @@ def cornell_box(width: int = 512, height: int = 512) -> Preset:
                       width=width, height=height)
     # tree_cap=1: this scene's live fork lanes never exceed 1x the
     # primary count per level, so even the tightest cap is LOSSLESS
-    # (truncation counter exactly 0 at full 512^2, identical image;
-    # r4 shipped cap=2 on the same evidence at 2x). History: uncapped
-    # 649ms -> cap2 312ms (r4) -> packed-gather compaction 86ms (r4)
-    # -> fused fork kernel + tile-granular parent scatter + cap1
-    # 22.8ms = 172M rays/s (r5, tpu_r5g.jsonl). On TPU bench routes
-    # this preset through the fused fork kernel (_trace_tree_mega);
-    # the composed tree path remains the differentiable/CPU fallback.
+    # (truncation counter exactly 0 at full 512^2, identical image).
     cfg = RenderConfig(max_bounces=4, background=(0, 0, 0), tree_cap=1)
     return scene, cam, cfg
 
@@ -190,34 +184,10 @@ def mesh_scene(n_tris: int = 10240, width: int = 1024, height: int = 1024,
     cam = Camera.make(position=(0, 7, -2), forward=(0, -0.1, 1), up=(0, 1, 0),
                       dist=1.0, half_h=0.7, half_v=0.7 * height / width,
                       width=width, height=height)
-    # tile_r=2048 + walk_unroll=2 + 56-tri multi-row leaves + per-light
-    # shadow walks measured fastest on v5e (r3 sweeps, docs/KERNELS.md):
-    # ~102ms on the flagship frame vs 147ms at the bare defaults. NOTE
-    # fuse_shadows flipped at fat leaves — fused leaf visits pay
-    # leaf_size x L triangle tests each, so per-light walks win at fat
-    # leaves (the r2 conclusion held only for 14-tri leaves).
-    # r4: tri_isect='bw' (Baldwin-Weber precomputed leaf records) is the
-    # measured default — 86.6ms vs 98.2ms mt at leaf 56, bit-identical
-    # image probe (docs/measurements/tpu_r4.jsonl sweep); the cheaper
-    # test shifts the leaf optimum up: 98-tri 7-row leaves measured
-    # 83.9ms / 494M (flat 98-112; tpu_r4h.jsonl fatleaf). light_cull
-    # stays 0 (exact); light_cull=4.0 is the measured bounded-error perf
-    # mode (62.5ms, mean-radiance drift 0.26%).
-    # r5 (all exact — probe drift 0.0; docs/measurements/tpu_r5*.jsonl):
-    # bvh_bins=64 (finer SAH sweep: -6% frame), stale_prune=False (the
-    # prune loop + its cross-lane max bound cost more than the visits
-    # they save), occ_mode='pack' (per-child hit tests packed into 2
-    # int32 sum reductions), near_mode stays 'sort' (ordered descent
-    # measured 8ms better than pack for nearest — best_t tightens
-    # sooner). 85.0 -> 68.9-70.2ms, 491 -> ~600M rays/s.
-    # fat leaves only pay off on big meshes; small test/dryrun scenes
-    # keep 14-tri leaves (the Pallas INTERPRETER executes the full
-    # static leaf unroll per visit — 98 slots would be minutes of CI)
+    # bvh_bins=64: finer SAH candidate splits give a tighter tree (fewer
+    # node visits per walk) for a slower build
     cfg = RenderConfig(max_bounces=4, background=(0.04, 0.05, 0.07),
-                       use_bvh=use_bvh, tile_r=2048, walk_unroll=2,
-                       bvh_leaf=98 if n_tris >= 10_000 else 14,
-                       fuse_shadows=False, tri_isect="bw",
-                       bvh_bins=64, stale_prune=False, occ_mode="pack")
+                       use_bvh=use_bvh, bvh_bins=64)
     return scene, cam, cfg
 
 

@@ -1,7 +1,7 @@
 """SoA scene representation (JAX pytrees).
 
-Design notes (TPU-first, not a port)
-------------------------------------
+Design notes (batched, not a port)
+----------------------------------
 The reference stores scenes as C# ``List<T>`` of AoS structs rebuilt from Unity
 GameObjects every frame (reference: Data/Objects/SphereData.cs,
 TriangleData.cs, MeshData.cs; Demo-RayTracing/RayTracingSetup.cs:120-128).
@@ -28,7 +28,8 @@ plus the dielectric extension (transparency/IOR) the baseline's config 2
 requires — the reference has no refraction at all.
 
 All geometry is float32: ray/primitive intersection is ill-conditioned in
-bfloat16. The compute is VPU/HBM-bound; bf16 would not buy MXU time here.
+bfloat16. There is no matrix product on the path for low precision to
+speed up.
 """
 
 from __future__ import annotations

@@ -1,54 +1,76 @@
-"""BVH: binned-SAH builder (host) + stackless vectorized traversal (device).
+"""BVH: binned-SAH builder (host) + stackless walk (device).
 
 The reference started a midpoint-split BVH and abandoned it — its
 ``Subdivide`` partitions triangles then throws ``NotImplementedException``
 (Data/Collision/BVH.cs:49-81), and no traversal code exists at all; the
 render path stayed brute force (Data/Objects/Scene.cs:64-115). This module
-is the completed, TPU-shaped version of that intent:
+is the completed, batched version of that intent:
 
-* **Builder** (numpy, host): top-down binned SAH (midpoint fallback) over
-  the flattened mesh-triangle soup, emitting flat arrays. Node order is
-  depth-first, so the "hit" successor of an interior node is implicitly
-  ``i+1`` and a precomputed ``miss_next`` skip pointer threads the tree —
-  the classic threaded/stackless layout.
-* **Traversal** (jnp, device): each ray carries ONE int cursor (no per-lane
-  stack); a ``lax.while_loop`` steps all rays in lockstep with masked
-  updates. Interior hit -> descend (cursor+1); miss or leaf -> follow
-  ``miss_next``. Leaves hold <= LEAF_SIZE triangles intersected with a
-  static unrolled loop. This trades the ordered-descent early-out of a
-  stack traversal for divergence-free vector state — the right trade on a
-  VPU, and the ``t_enter <= best_t`` cull still prunes far subtrees.
+* **Builder** (C++ via ctypes, numpy fallback; host): top-down binned SAH
+  (midpoint fallback) over the flattened mesh-triangle soup, emitting flat
+  arrays. Node order is depth-first, so the "hit" successor of an interior
+  node is implicitly ``i+1`` and a precomputed ``miss_next`` skip pointer
+  threads the tree — the classic threaded/stackless layout.
+* **Walk** (device): each ray carries ONE int cursor (no per-lane stack).
+  Interior hit -> descend (cursor+1); miss or leaf -> follow ``miss_next``.
+  Leaves hold <= ``leaf_size`` triangles. ``_walk_xla`` steps all rays in
+  lockstep in a ``lax.while_loop``; ``ops/pallas/walk.py`` runs the same
+  walk as one GPU kernel. ``traverse_any`` picks one through
+  ``ops/backend.walk_route``. The ``t_enter <= best_t`` cull prunes far
+  subtrees.
 
-Traversal is index logic — wrapped in stop_gradient by construction (int
-cursors); gradients flow through the final gathered triangle hit exactly as
-in the brute-force path.
+The walk is index logic — cut from autodiff by construction (int cursors);
+gradients flow through the final gathered triangle hit exactly as in the
+brute-force path (``_epilogue``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from dataclasses import dataclass
+import os
+import pathlib
+import subprocess
+import sys
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from unity_raytracer_tpu.ops.intersect import EPS, INF
+from unity_raytracer_tpu.ops.intersect import EPS, INF, dot3
 
 LEAF_SIZE = 4
 SAH_BINS = 16
 
 
 # --- native (C++) builder backend ------------------------------------------
-# The framework's native tier: native/bvh_builder.cc implements the same
-# flat threaded layout 441x faster than the numpy reference builder below
-# (measured: 0.05s vs 21.7s on the 102k-tri flagship scene).
-# Loaded lazily via ctypes; auto-compiled with `make -C native` when g++ is
-# available; silently falls back to the numpy path otherwise.
+# native/bvh_builder.cc implements the same flat threaded layout as the
+# numpy reference builder below, orders of magnitude faster on the 102k-tri
+# flagship scene. Built from source at first use (``make -C native``) into
+# native/build/ (git-ignored) and loaded via ctypes; the numpy path is the
+# fallback, with a warning on stderr.
 
 _NATIVE_LIB = None
 _NATIVE_TRIED = False
+_NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
+NATIVE_SO = _NATIVE_DIR / "build" / "libbvh.so"
+
+
+def _build_native_so() -> None:
+    """Compile native/bvh_builder.cc into ``NATIVE_SO``. The library is
+    written under a per-process name and renamed into place, so
+    concurrent first users (test workers) never load a half-written
+    file."""
+    NATIVE_SO.parent.mkdir(parents=True, exist_ok=True)
+    tmp = NATIVE_SO.with_name(f"libbvh.{os.getpid()}.tmp.so")
+    try:
+        subprocess.run(["make", "-s", "-C", str(_NATIVE_DIR),
+                        f"OUT={tmp}"], check=True, capture_output=True,
+                       timeout=300)
+        os.replace(tmp, NATIVE_SO)
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def _native_lib():
@@ -56,38 +78,21 @@ def _native_lib():
     if _NATIVE_TRIED:
         return _NATIVE_LIB
     _NATIVE_TRIED = True
-    import ctypes
-    import pathlib
-    import subprocess
-
-    root = pathlib.Path(__file__).resolve().parents[2] / "native"
-    so = root / "libbvh.so"
-    if not so.exists():
-        try:
-            subprocess.run(["make", "-C", str(root)], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
     try:
-        lib = ctypes.CDLL(str(so))
-        lib.urt_build_bvh.restype = ctypes.c_int
-        lib.urt_build_bvh.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int,
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
-        # extended entry with explicit SAH bin count (older cached .so
-        # may predate it; fall back to the 16-bin default entry)
-        if hasattr(lib, "urt_build_bvh_ex"):
-            lib.urt_build_bvh_ex.restype = ctypes.c_int
-            lib.urt_build_bvh_ex.argtypes = (
-                lib.urt_build_bvh.argtypes[:4] + [ctypes.c_int]
-                + lib.urt_build_bvh.argtypes[4:])
-        _NATIVE_LIB = lib
-    except Exception:
-        _NATIVE_LIB = None
-    return _NATIVE_LIB
+        if not NATIVE_SO.exists():
+            _build_native_so()
+        lib = ctypes.CDLL(str(NATIVE_SO))
+    except (OSError, subprocess.SubprocessError) as e:
+        print(f"unity_raytracer_tpu: native BVH builder unavailable ({e}); "
+              f"using the numpy builder", file=sys.stderr)
+        return None
+    f32 = ctypes.POINTER(ctypes.c_float)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    lib.urt_build_bvh_ex.restype = ctypes.c_int
+    lib.urt_build_bvh_ex.argtypes = (
+        [f32] + [ctypes.c_int] * 4 + [f32, f32, i32, i32, i32, i32])
+    _NATIVE_LIB = lib
+    return lib
 
 
 def _build_native(tris: np.ndarray, leaf_size: int, use_sah: bool,
@@ -96,10 +101,6 @@ def _build_native(tris: np.ndarray, leaf_size: int, use_sah: bool,
     lib = _native_lib()
     if lib is None:
         return None
-    if sah_bins != SAH_BINS and not hasattr(lib, "urt_build_bvh_ex"):
-        return None  # stale .so without the bins entry: use numpy path
-
-    import ctypes
 
     m = tris.shape[0]
     tris_f = np.ascontiguousarray(tris.reshape(m, 9), np.float32)
@@ -114,19 +115,12 @@ def _build_native(tris: np.ndarray, leaf_size: int, use_sah: bool,
     def p(a, t):
         return a.ctypes.data_as(ctypes.POINTER(t))
 
-    if hasattr(lib, "urt_build_bvh_ex"):
-        n = lib.urt_build_bvh_ex(
-            p(tris_f, ctypes.c_float), m, leaf_size, int(use_sah),
-            int(sah_bins),
-            p(node_min, ctypes.c_float), p(node_max, ctypes.c_float),
-            p(first, ctypes.c_int32), p(count, ctypes.c_int32),
-            p(miss, ctypes.c_int32), p(order, ctypes.c_int32))
-    else:
-        n = lib.urt_build_bvh(
-            p(tris_f, ctypes.c_float), m, leaf_size, int(use_sah),
-            p(node_min, ctypes.c_float), p(node_max, ctypes.c_float),
-            p(first, ctypes.c_int32), p(count, ctypes.c_int32),
-            p(miss, ctypes.c_int32), p(order, ctypes.c_int32))
+    n = lib.urt_build_bvh_ex(
+        p(tris_f, ctypes.c_float), m, leaf_size, int(use_sah),
+        int(sah_bins),
+        p(node_min, ctypes.c_float), p(node_max, ctypes.c_float),
+        p(first, ctypes.c_int32), p(count, ctypes.c_int32),
+        p(miss, ctypes.c_int32), p(order, ctypes.c_int32))
     if n <= 0:
         return None
     return (node_min[:n], node_max[:n], first[:n], count[:n], miss[:n],
@@ -295,7 +289,7 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
     tris = verts[orig_idx]
     m = tris.shape[0]
     if m == 0:
-        # single empty leaf
+        # single empty leaf (its inverted box is never entered)
         return MeshBVH(
             node_min=jnp.full((1, 3), np.inf, jnp.float32),
             node_max=jnp.full((1, 3), -np.inf, jnp.float32),
@@ -325,6 +319,8 @@ def build(verts: np.ndarray, valid: np.ndarray | None = None,
         if backend == "native":
             raise RuntimeError("native BVH builder unavailable "
                                "(g++/make failed?)")
+        print("unity_raytracer_tpu: building the BVH with the numpy "
+              "builder (slow at 100k triangles)", file=sys.stderr)
 
     if presplit:
         ref_tri, lo, hi = presplit_refs(tris, presplit)
@@ -506,8 +502,10 @@ def _slab_enter(o, d_inv, lo, hi, tmax):
     t2 = (hi - o) * d_inv
     tn = jnp.minimum(t1, t2)
     tf = jnp.maximum(t1, t2)
-    t_enter = jnp.maximum(jnp.max(tn, axis=-1), 0.0)
-    t_exit = jnp.minimum(jnp.min(tf, axis=-1), tmax)
+    t_enter = jnp.maximum(
+        jnp.maximum(jnp.maximum(tn[:, 0], tn[:, 1]), tn[:, 2]), 0.0)
+    t_exit = jnp.minimum(
+        jnp.minimum(jnp.minimum(tf[:, 0], tf[:, 1]), tf[:, 2]), tmax)
     return (t_enter <= t_exit), t_enter
 
 
@@ -525,14 +523,14 @@ def _mt_one(o, d, v0, v1, v2):
     e1 = v1 - v0
     e2 = v2 - v0
     h = jnp.cross(d, e2)
-    a = jnp.sum(e1 * h, axis=-1)
+    a = dot3(e1, h)
     parallel = jnp.abs(a) < EPS
     f = 1.0 / jnp.where(parallel, 1.0, a)
     s = o - v0
-    u = f * jnp.sum(s * h, axis=-1)
+    u = f * dot3(s, h)
     q = jnp.cross(s, e1)
-    v = f * jnp.sum(d * q, axis=-1)
-    t = f * jnp.sum(e2 * q, axis=-1)
+    v = f * dot3(d, q)
+    t = f * dot3(e2, q)
     miss = (parallel | (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
             | (t <= EPS))
     return jnp.where(miss, INF, t)
@@ -546,25 +544,15 @@ def shading_normal(tri: jnp.ndarray) -> jnp.ndarray:
     e2 = tri[:, 1] - tri[:, 0]
     nml = -jnp.cross(e1, e2)
     return nml * jax.lax.rsqrt(
-        jnp.maximum(jnp.sum(nml * nml, axis=-1, keepdims=True), 1e-60))
+        jnp.maximum(dot3(nml, nml), 1e-60))[:, None]
 
 
-def traverse(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
-             t_max: jnp.ndarray | None = None,
-             any_hit: bool = False
-             ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Nearest mesh-triangle hit via threaded-BVH traversal.
-
-    Returns ``(t [N], original_prim_index [N], shading_normal [N,3])``
-    with +inf / -1 / junk on miss. The normal is re-derived from the
-    winning triangle's verts (one cross product on data the t re-derivation
-    already gathered) — meaningful only when ``bvh.canonical``.
-    ``t_max`` optionally seeds the cull distance (shadow queries pass the
-    light distance so far subtrees prune immediately); a negative ``t_max``
-    culls the lane entirely. ``any_hit`` finishes a lane at its first
-    occluder closer than ``t_max`` (occlusion queries only — the returned t
-    is a valid occluder distance, not the minimum).
-    """
+def _walk_xla(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
+              t_max: jnp.ndarray | None = None, any_hit: bool = False
+              ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """The stackless walk as one ``lax.while_loop`` over all lanes ->
+    ``(best_t [N], best_i [N])``: best_t seeded with ``t_max`` (negative
+    culls the lane), best_i the winning leaf-order row or -1."""
     n = o.shape[0]
     d_inv = _safe_inv(d)
     best_t0 = jnp.full((n,), jnp.inf, jnp.float32) if t_max is None \
@@ -586,7 +574,7 @@ def traverse(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
 
         box_hit, _ = _slab_enter(o, d_inv, nlo, nhi, best_t)
         box_hit = box_hit & active
-        is_leaf = count > 0
+        is_leaf = first >= 0    # interior nodes carry first == -1
 
         # static unrolled leaf loop (builder caps leaf size)
         for k in range(bvh.leaf_size):
@@ -611,15 +599,22 @@ def traverse(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
     best_i0 = jnp.full((n,), -1, jnp.int32)
     _, best_t, best_i = jax.lax.while_loop(
         cond, body, (cursor0, jax.lax.stop_gradient(best_t0), best_i0))
-    # while_loop is not reverse-mode differentiable; traversal is pure index
-    # logic, so cut gradients here and re-derive t differentiably below
-    best_t = jax.lax.stop_gradient(best_t)
+    return best_t, best_i
 
+
+def _epilogue(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
+              best_t: jnp.ndarray, best_i: jnp.ndarray
+              ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """Walk result -> ``(t, original prim index, shading normal)``.
+
+    The walk is not reverse-mode differentiable (while_loop / Pallas);
+    it is pure index logic, so its t is cut here and the winner's t is
+    re-derived differentiably from the gathered triangle — gradients flow
+    through the verts exactly like the brute-force path."""
+    best_t = jax.lax.stop_gradient(best_t)
     orig = jnp.where(best_i >= 0,
                      jnp.take(bvh.prim_index, jnp.clip(best_i, 0, None)),
                      -1)
-    # re-derive a differentiable t for the winning triangle: gradients flow
-    # through the gathered verts exactly like the brute-force path
     safe_row = jnp.clip(best_i, 0, None)
     tri = jnp.take(bvh.tri_verts, safe_row, axis=0)
     t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
@@ -627,6 +622,26 @@ def traverse(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
     t_out = jnp.where(hit, jnp.where(jnp.isfinite(t_diff), t_diff, best_t),
                       jnp.inf)
     return t_out, orig.astype(jnp.int32), shading_normal(tri)
+
+
+def traverse(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
+             t_max: jnp.ndarray | None = None,
+             any_hit: bool = False
+             ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """Nearest mesh-triangle hit via the XLA walk.
+
+    Returns ``(t [N], original_prim_index [N], shading_normal [N,3])``
+    with +inf / -1 / junk on miss. The normal is re-derived from the
+    winning triangle's verts (one cross product on data the t re-derivation
+    already gathered) — meaningful only when ``bvh.canonical``.
+    ``t_max`` optionally seeds the cull distance (shadow queries pass the
+    light distance so far subtrees prune immediately); a negative ``t_max``
+    culls the lane entirely. ``any_hit`` finishes a lane at its first
+    occluder closer than ``t_max`` (occlusion queries only — the returned t
+    is a valid occluder distance, not the minimum).
+    """
+    best_t, best_i = _walk_xla(bvh, o, d, t_max=t_max, any_hit=any_hit)
+    return _epilogue(bvh, o, d, best_t, best_i)
 
 
 def canonical_winding(verts: np.ndarray, normals: np.ndarray,
@@ -644,91 +659,44 @@ def canonical_winding(verts: np.ndarray, normals: np.ndarray,
     return (v, flip) if return_flip else v
 
 
-def bind_verts(bvh, scene):
-    """Differentiably re-derive the traversal epilogue's triangle table
-    from the CURRENT scene mesh verts — the mesh-vertex gradient hook
+def bind_verts(bvh: MeshBVH, scene) -> MeshBVH:
+    """Differentiably re-derive the walk epilogue's triangle table from
+    the CURRENT scene mesh verts — the mesh-vertex gradient hook
     (fit.PARAM_PATHS 'mesh_verts').
 
-    Traversal decisions (which node, which winner) stay on the baked
-    arrays behind stop_gradient; the epilogue's differentiable t /
-    shading-normal re-derivation then reads this bound table, so
-    d(radiance)/d(mesh verts) flows exactly like the brute-force path.
-    When the verts are NOT a traced parameter the gather constant-folds
-    at compile time — binding is free for ordinary renders.
+    Walk decisions (which node, which winner) run on ``stop_gradient``
+    data; the epilogue's differentiable t / shading-normal re-derivation
+    then reads this bound table, so d(radiance)/d(mesh verts) flows
+    exactly like the brute-force path. When the verts are NOT a traced
+    parameter the gather constant-folds at compile time — binding is free
+    for ordinary renders.
 
-    Caveats (documented mesh-fitting contract):
-    * use the composed path with kernel='xla' — the Pallas packet
-      kernels test the BAKED leaf rows for winner selection, so their
-      forward would lag the moving verts;
-    * build the BVH with ``aabb_pad >= max vertex displacement``
-      (cfg.bvh_pad) so the padded node boxes stay conservative and the
-      forward remains exact while verts move.
+    Caveat (documented mesh-fitting contract): build the BVH with
+    ``aabb_pad >= max vertex displacement`` (cfg.bvh_pad) so the padded
+    node boxes stay conservative and the forward remains exact while
+    verts move.
     """
-    from unity_raytracer_tpu.ops.pallas.traverse_mk3 import PackedBVH
     if scene.meshes.count == 0:
         return bvh
-    packed = isinstance(bvh, PackedBVH)
-    inner = bvh.bvh if packed else bvh
     v = scene.meshes.verts
-    if inner.flip is not None:
-        v = jnp.where(inner.flip[:, None, None], v[:, (0, 2, 1), :], v)
-    tri = jnp.take(v, jnp.clip(inner.prim_index, 0, None), axis=0)
-    new_inner = dataclasses.replace(inner, tri_verts=tri)
-    return bvh._replace(bvh=new_inner) if packed else new_inner
+    if bvh.flip is not None:
+        v = jnp.where(bvh.flip[:, None, None], v[:, (0, 2, 1), :], v)
+    tri = jnp.take(v, jnp.clip(bvh.prim_index, 0, None), axis=0)
+    return dataclasses.replace(bvh, tri_verts=tri)
 
 
-def prepare_bvh(scene, cfg):
-    """Build the right BVH artifact for the configured kernel.
-
-    'pallas' kernels get a PackedBVH (leaf_size=PALLAS_LEAF row layout);
-    'xla' gets a plain MeshBVH. Call host-side on a concrete scene.
-    Triangle winding is canonicalized against the scene's stored shading
-    normals so the traversal epilogue re-derives normals for free.
-    """
-    kernel = cfg.kernel
-    if kernel == "auto":
-        kernel = "xla" if jax.default_backend() == "cpu" else "pallas"
+def prepare_bvh(scene, cfg) -> MeshBVH:
+    """Build the scene's mesh BVH — the one layout both walks read.
+    Call host-side on a concrete scene. Triangle winding is canonicalized
+    against the scene's stored shading normals so the walk epilogue
+    re-derives normals for free."""
     verts, flip = canonical_winding(np.asarray(scene.meshes.verts),
                                     np.asarray(scene.meshes.normals),
                                     return_flip=True)
-    flip_j = jnp.asarray(flip)
-    pad = getattr(cfg, "bvh_pad", 0.0) or 0.0
-    if kernel.startswith("pallas") or kernel in ("mega", "wide"):
-        from unity_raytracer_tpu.ops.pallas.traverse_mk3 import (
-            PALLAS_LEAF, pack_bw, pack_rows)
-        from unity_raytracer_tpu.ops.pallas.traverse_wide import widen
-        leaf = getattr(cfg, "bvh_leaf", PALLAS_LEAF) or PALLAS_LEAF
-        bins = getattr(cfg, "bvh_bins", SAH_BINS) or SAH_BINS
-        b = build(verts, np.asarray(scene.meshes.valid), leaf_size=leaf,
-                  sah_bins=bins, aabb_pad=pad,
-                  presplit=getattr(cfg, "bvh_presplit", 0.0) or 0.0)
-        packed = widen(
-            pack_rows(dataclasses.replace(b, canonical=True,
-                                          flip=flip_j),
-                      leaf_slots=leaf),
-            arity=getattr(cfg, "bvh_arity", 4))
-        # Baldwin–Weber leaf records for the megakernel's cheap triangle
-        # test (cfg.tri_isect='bw') — a few MB, built unconditionally so
-        # the kernel choice is a pure config flip
-        packed = pack_bw(packed)
-        # per-leaf-slot combined-material id (sphere ++ loose ++ mesh
-        # table order, matching ops/pallas/mega.build_aux) for the fused
-        # segment megakernel
-        s_cnt = scene.spheres.count
-        t_cnt = scene.triangles.count
-        lp = np.asarray(packed.leaf_prim)
-        prim = np.asarray(b.prim_index)
-        mid = np.asarray(scene.meshes.mesh_id)
-        matid = s_cnt + t_cnt + mid[prim[np.clip(lp, 0, None)]]
-        mwidth = max(16, -(-lp.shape[1] // 8) * 8)
-        leafmeta = np.zeros((lp.shape[0], mwidth), np.float32)
-        leafmeta[:, : lp.shape[1]] = matid.astype(np.float32)
-        return packed._replace(leafmeta=jnp.asarray(leafmeta))
     b = build(verts, np.asarray(scene.meshes.valid),
-              sah_bins=getattr(cfg, "bvh_bins", SAH_BINS) or SAH_BINS,
-              aabb_pad=pad,
-              presplit=getattr(cfg, "bvh_presplit", 0.0) or 0.0)
-    return dataclasses.replace(b, canonical=True, flip=flip_j)
+              leaf_size=cfg.bvh_leaf, sah_bins=cfg.bvh_bins,
+              aabb_pad=cfg.bvh_pad, presplit=cfg.bvh_presplit)
+    return dataclasses.replace(b, canonical=True, flip=jnp.asarray(flip))
 
 
 def traverse_any(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
@@ -736,43 +704,19 @@ def traverse_any(bvh: MeshBVH, o: jnp.ndarray, d: jnp.ndarray,
                  kernel: str = "auto",
                  any_hit: bool = False
                  ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Backend-dispatching traversal -> (t, prim index, shading normal).
+    """Walk routed by ``ops/backend.walk_route(kernel)`` ->
+    ``(t, prim index, shading normal)`` as in ``traverse``.
 
-    kernel: 'xla' (per-lane lockstep while_loop, works everywhere),
-    'pallas' (ordered packet kernel, ops/pallas/traverse_mk4 — TPU),
-    'pallas3' (threaded-order packet kernel, traverse_mk3 — TPU),
-    'auto' (pallas on TPU backends, xla on CPU). Pallas kernels need the
-    PackedBVH row layout (prepare_bvh); a bare MeshBVH always takes the
-    XLA path. (Historical: a per-row kernel `traverse_mk` and a
-    dynamic-lane variant `traverse_mk2` were retired — see docs/KERNELS.md
-    for the measured negative results.)
     ``any_hit`` (occlusion queries): lanes finish at the first occluder
     closer than ``t_max``; a negative ``t_max`` culls a lane outright.
     """
-    from unity_raytracer_tpu.ops.pallas.traverse_mk3 import (
-        PackedBVH, traverse_packet3)
-    if kernel == "auto":
-        kernel = "xla" if jax.default_backend() == "cpu" else "pallas"
-    if kernel == "mega":
-        kernel = "pallas"  # composed-path fallback for megakernel configs
-    # an EXPLICIT pallas kernel on the CPU backend runs the Pallas
-    # interpreter — lets CI (and shard_map tests) exercise the real
-    # kernels without a TPU
-    interpret = jax.default_backend() == "cpu"
-    if isinstance(bvh, PackedBVH):
-        if kernel == "xla":
-            return traverse(bvh.bvh, o, d, t_max=t_max, any_hit=any_hit)
-        if kernel == "pallas3":
-            return traverse_packet3(bvh, o, d, t_max=t_max,
-                                    any_hit=any_hit, interpret=interpret)
-        if kernel == "wide" and bvh.wide is not None:
-            from unity_raytracer_tpu.ops.pallas.traverse_wide import (
-                traverse_wide)
-            return traverse_wide(bvh, o, d, t_max=t_max, any_hit=any_hit,
-                                 interpret=interpret)
-        # default pallas: ordered near-first traversal (traverse_mk4)
-        from unity_raytracer_tpu.ops.pallas.traverse_mk4 import (
-            traverse_packet4)
-        return traverse_packet4(bvh, o, d, t_max=t_max, any_hit=any_hit,
-                                interpret=interpret)
-    return traverse(bvh, o, d, t_max=t_max, any_hit=any_hit)
+    from unity_raytracer_tpu.ops.backend import walk_route
+    route, interpret = walk_route(kernel)
+    if route == "xla":
+        return traverse(bvh, o, d, t_max=t_max, any_hit=any_hit)
+    from unity_raytracer_tpu.ops.pallas.walk import walk
+    if t_max is None:
+        t_max = jnp.full((o.shape[0],), jnp.inf, jnp.float32)
+    best_t, best_i = walk(bvh, o, d, t_max, any_hit=any_hit,
+                          interpret=interpret)
+    return _epilogue(bvh, o, d, best_t, best_i)

@@ -1,10 +1,11 @@
 """Batched ray/primitive intersection (pure jnp, differentiable).
 
-TPU-first redesign of the reference's scalar kernels (Math/RMath.cs): every
+Batched redesign of the reference's scalar kernels (Math/RMath.cs): every
 function is an ``[N_rays] x [N_prims]`` broadcasted tensor expression — no
-branches, all rejects are masks — which is simultaneously what the VPU wants
-and what makes the tracer differentiable (branch conditions become
-multiplicative masks whose *values* carry gradients through ``t``).
+branches, all rejects are masks — which is simultaneously what XLA fuses
+into wide elementwise kernels and what makes the tracer differentiable
+(branch conditions become multiplicative masks whose *values* carry
+gradients through ``t``).
 
 Miss encoding: ``t = +inf`` (the reference uses ``float.MaxValue``,
 Data/Objects/Scene.cs:45; inf composes better with min-reductions and the
@@ -58,6 +59,19 @@ class Hit:
         return self.kind != KIND_NONE
 
 
+def dot3(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """Dot product over a size-3 minor axis, written as two adds.
+
+    A reduce over a size-3 minor axis whose result is broadcast back is
+    what XLA:GPU turns into Triton block-level fusions with tiles that grow
+    with the ray count: at 1080p eight of them took most of a ~2 minute
+    frame compile on an H100 (ptxas on a 22k-line kernel). Elementwise
+    arithmetic fuses into ordinary loop fusions instead.
+    """
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
 def ray_aabb(o: jnp.ndarray, d: jnp.ndarray, lo: jnp.ndarray,
              hi: jnp.ndarray) -> jnp.ndarray:
     """Slab test with ``tmin`` seeded 0 (origin inside box => hit) exactly as
@@ -92,8 +106,8 @@ def ray_spheres(o: jnp.ndarray, d: jnp.ndarray, centers: jnp.ndarray,
     discriminant < 0 or both roots < 0; inside-sphere rays take the far root.
     """
     oc = o[:, None, :] - centers[None, :, :]            # [N,S,3]
-    uoc = jnp.sum(d[:, None, :] * oc, axis=-1)          # [N,S]
-    oc_sq = jnp.sum(oc * oc, axis=-1)
+    uoc = dot3(d[:, None, :], oc)                       # [N,S]
+    oc_sq = dot3(oc, oc)
     disc = uoc * uoc - (oc_sq - radius_sq[None, :])
     sq = _safe_sqrt(disc)
     big = -uoc + sq
@@ -115,32 +129,6 @@ def _safe_sqrt(disc: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(pos, jnp.sqrt(jnp.where(pos, disc, 1.0)), 0.0)
 
 
-def ray_spheres_mm(o: jnp.ndarray, d: jnp.ndarray, centers: jnp.ndarray,
-                   radius_sq: jnp.ndarray,
-                   valid: jnp.ndarray | None = None) -> jnp.ndarray:
-    """MXU formulation of `ray_spheres` for large N*S: the two inner products
-    decompose into matmuls — ``d.oc = d.o - d@C^T`` and
-    ``|oc|^2 = |o|^2 - 2 o@C^T + |C|^2`` — so the O(N*S) work rides the
-    systolic array instead of the VPU. Same results up to fp association.
-    """
-    dC = d @ centers.T                                   # [N,S] MXU
-    oC = o @ centers.T                                   # [N,S] MXU
-    do = jnp.sum(d * o, axis=-1, keepdims=True)          # [N,1]
-    oo = jnp.sum(o * o, axis=-1, keepdims=True)          # [N,1]
-    cc = jnp.sum(centers * centers, axis=-1)[None, :]    # [1,S]
-    uoc = do - dC
-    oc_sq = oo - 2.0 * oC + cc
-    disc = uoc * uoc - (oc_sq - radius_sq[None, :])
-    sq = _safe_sqrt(disc)
-    big = -uoc + sq
-    small = -uoc - sq
-    t = jnp.where(small < 0, big, small)
-    miss = (disc < 0) | (big < 0)
-    if valid is not None:
-        miss = miss | ~valid[None, :]
-    return jnp.where(miss, INF, t)
-
-
 def ray_triangles(o: jnp.ndarray, d: jnp.ndarray, verts: jnp.ndarray,
                   valid: jnp.ndarray | None = None) -> jnp.ndarray:
     """All-pairs Moller-Trumbore ``t [N,T]`` (+inf = miss).
@@ -153,14 +141,14 @@ def ray_triangles(o: jnp.ndarray, d: jnp.ndarray, verts: jnp.ndarray,
     e1 = verts[:, 1, :] - v0
     e2 = verts[:, 2, :] - v0
     h = jnp.cross(d[:, None, :], e2[None, :, :])         # [N,T,3]
-    a = jnp.sum(e1[None, :, :] * h, axis=-1)             # [N,T]
+    a = dot3(e1[None, :, :], h)                          # [N,T]
     parallel = jnp.abs(a) < EPS
     f = 1.0 / jnp.where(parallel, 1.0, a)
     s = o[:, None, :] - v0[None, :, :]                   # [N,T,3]
-    u = f * jnp.sum(s * h, axis=-1)
+    u = f * dot3(s, h)
     q = jnp.cross(s, e1[None, :, :])                     # [N,T,3]
-    v = f * jnp.sum(d[:, None, :] * q, axis=-1)
-    t = f * jnp.sum(e2[None, :, :] * q, axis=-1)
+    v = f * dot3(d[:, None, :], q)
+    t = f * dot3(e2[None, :, :], q)
     miss = (parallel | (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
             | (t <= EPS))
     if valid is not None:
@@ -183,8 +171,8 @@ def sphere_margins(scene, o: jnp.ndarray, d: jnp.ndarray
     centers = scene.spheres.centers
     r2 = scene.spheres.radius_sq
     oc = o[:, None, :] - centers[None, :, :]
-    uoc = jnp.sum(d[:, None, :] * oc, axis=-1)
-    oc_sq = jnp.sum(oc * oc, axis=-1)
+    uoc = dot3(d[:, None, :], oc)
+    oc_sq = dot3(oc, oc)
     disc = uoc * uoc - (oc_sq - r2[None, :])
     margin = disc / jnp.maximum(r2[None, :], 1e-12)
     in_front = (-uoc) > 0.0
@@ -194,15 +182,23 @@ def sphere_margins(scene, o: jnp.ndarray, d: jnp.ndarray
     return margin, t_close
 
 
+_SMALL_TABLE = 32
+
+
 def _best(t: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-ray (min t, argmin). jnp.argmin takes the first minimum, which
-    matches the reference's strict-``>`` update keeping the earliest of
-    equals (Scene.cs:72-81)."""
-    idx = jnp.argmin(t, axis=1).astype(jnp.int32)
-    # t[argmin] IS the min — jnp.min is a reduction; the take_along_axis
-    # it replaces lowered to a per-lane gather costing ~16ms per [524k,
-    # 10] call on v5e (cornell xprof, r4)
-    tmin = jnp.min(t, axis=1)
+    """Per-ray (min t, first argmin) over the [N, K] candidates. The first
+    minimum matches the reference's strict-``>`` update keeping the
+    earliest of equals (Scene.cs:72-81). Small tables (spheres, loose
+    triangles) run as an unrolled elementwise chain, no reduce (see
+    ``dot3``)."""
+    if t.shape[1] > _SMALL_TABLE:
+        return jnp.min(t, axis=1), jnp.argmin(t, axis=1).astype(jnp.int32)
+    tmin = t[:, 0]
+    idx = jnp.zeros(t.shape[:1], jnp.int32)
+    for k in range(1, t.shape[1]):
+        better = t[:, k] < tmin
+        tmin = jnp.where(better, t[:, k], tmin)
+        idx = jnp.where(better, k, idx)
     return tmin, idx
 
 
@@ -226,40 +222,18 @@ def nearest_hit(scene, o: jnp.ndarray, d: jnp.ndarray, bvh=None,
     n = o.shape[0]
     mesh_n = None
     if bvh is None:
-        if ((kernel.startswith("pallas") or kernel == "mega")
-                and scene.meshes.verts.shape[0] >= 2048):
-            # big mesh, no BVH: the fused brute-force megakernel avoids
-            # materializing the [N, M] t-matrix in HBM. Gradients are
-            # cut at the kernel; re-derive t differentiably from the
-            # winning triangle (same pattern as the BVH epilogues).
-            from unity_raytracer_tpu.ops.bvh import _mt_one
-            from unity_raytracer_tpu.ops.pallas.intersect_mk import (
-                nearest_triangle_pallas)
-            t_k, i_mesh = nearest_triangle_pallas(
-                o, d, scene.meshes.verts, scene.meshes.valid,
-                interpret=jax.default_backend() == "cpu")
-            i_mesh = jnp.clip(i_mesh, 0, None)
-            tri = jnp.take(scene.meshes.verts, i_mesh, axis=0)
-            t_diff = _mt_one(o, d, tri[:, 0], tri[:, 1], tri[:, 2])
-            t_mesh = jnp.where(
-                jnp.isfinite(t_k),
-                jnp.where(jnp.isfinite(t_diff), t_diff,
-                          jax.lax.stop_gradient(t_k)), INF)
-        else:
-            t_mesh, i_mesh = _best(ray_triangles(o, d, scene.meshes.verts,
-                                                 scene.meshes.valid))
+        t_mesh, i_mesh = _best(ray_triangles(o, d, scene.meshes.verts,
+                                             scene.meshes.valid))
     else:
         from unity_raytracer_tpu.ops.bvh import traverse_any
-        # t_max < 0 culls dead lanes from the packet union (bounce chains
-        # pass -1 for retired rays); it does not change live-lane results
+        # t_max < 0 culls dead lanes from the walk (bounce chains pass -1
+        # for retired rays); it does not change live-lane results
         t_mesh, i_mesh, nml = traverse_any(
             bvh, o, d, kernel=kernel,
             t_max=jax.lax.stop_gradient(t_max)
             if t_max is not None else None)
         i_mesh = jnp.clip(i_mesh, 0, None)  # downstream masks on kind
-        canonical = bvh.bvh.canonical if hasattr(bvh, "bvh") \
-            else bvh.canonical
-        if canonical:
+        if bvh.canonical:
             mesh_n = nml
     t_sph, i_sph = _best(ray_spheres(o, d, scene.spheres.centers,
                                      scene.spheres.radius_sq,

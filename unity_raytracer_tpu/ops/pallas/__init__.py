@@ -1,1 +1,2 @@
-"""Pallas TPU kernels — the hand-tuned tier under the XLA-compiled ops."""
+"""Pallas GPU kernels (Triton route) — the hand-written tier under the
+XLA-compiled ops."""

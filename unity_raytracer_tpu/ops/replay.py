@@ -1,26 +1,26 @@
-"""Record-replay backward: megakernel forward + differentiable shading
-replay — the fwd+bwd kernel story.
+"""Record-replay backward: one hard forward that records the discrete
+decisions + a differentiable shading replay — the fast fwd+bwd path.
 
-The composed differentiable path re-traverses the BVH per segment and
-stores [N,L] lighting tensors as autodiff residuals; at 1080p/depth-4
-that is both ~4x slower than the fused megakernel forward and heavy on
-HBM. This module gets gradients at megakernel speed by splitting the
-work the way the math actually splits:
+The composed differentiable path re-walks the BVH per segment inside the
+gradient and stores [N,L] lighting tensors as autodiff residuals. This
+module gets gradients at forward speed by splitting the work the way the
+math actually splits:
 
-* **Traversal is index logic** — which primitive wins, which lights are
+* **The walk is index logic** — which primitive wins, which lights are
   occluded. It carries no parameter gradient in the hard-visibility
   regime (temps 0): the composed path already wraps it in
   ``stop_gradient`` / fixed-argmin selection.
 * **Shading is the differentiable part** — the winner's analytic t, the
   surface normal, Blinn-Phong terms, light falloff.
 
-So: run the fused megakernel forward ONCE with ``record=True``
-(ops/pallas/mega.trace_segment) to get per-segment hit records
-``(t, n, matid, occbits)``, then REPLAY the bounce chain's shading in
-pure differentiable jnp with the discrete decisions frozen to the
-records. No traversal in the backward, no [N,L] shadow queries, no
-per-lane gathers (winner geometry/material comes from small-table
-masked selects, ops/shade.take_rows).
+So: run the bounce chain ONCE with ``trace_records`` — the composed
+pieces (``nearest_hit`` plus the shadow queries of
+``shade.shadow_queries``, on whichever walk ``ops/backend`` routes to) —
+to get per-segment hit records ``(t, n, matid, occbits)``, then REPLAY
+the bounce chain's shading in pure differentiable jnp with the discrete
+decisions frozen to the records. No walk in the backward, no [N,L]
+shadow queries, no per-lane gathers (winner geometry/material comes from
+small-table masked selects, ops/shade.take_rows).
 
 Gradient semantics = the composed path at ``soft_*_temp == 0`` exactly
 (tests/test_replay.py asserts allclose grads):
@@ -30,16 +30,16 @@ Gradient semantics = the composed path at ``soft_*_temp == 0`` exactly
 * loose-triangle winners: t via Moller-Trumbore and the stored normal
   table -> gradients w.r.t. tri_verts / normals;
 * mesh-triangle winners: recorded t/normal used as constants — correct
-  for every optimizable parameter class in fit.PARAM_PATHS (none of
-  which moves mesh vertices), zero-gradient w.r.t. the mesh itself;
+  for every optimizable parameter class in fit.PARAM_PATHS except
+  'mesh_verts' (use the composed path for those);
 * visibility (hit/shadow bits): frozen — identical to the hard forward
   whose gradient is zero/straight-through anyway.
 
-Soft silhouette fitting (temps > 0) has its own fast path since r4:
-``trace_records(soft=True)`` records per-light MIN occluder distances
-(min-mode shadow walks) and ``replay_radiance_soft`` rebuilds the
-composed soft semantics differentiably — sphere silhouettes and
-sphere/loose soft shadows exact, mesh facts frozen (see its
+Soft silhouette fitting (temps > 0): ``trace_records(soft=True)`` also
+records per-light MIN mesh-occluder distances (``any_hit=False`` shadow
+walks bounded by the light distance) and ``replay_radiance_soft``
+rebuilds the composed soft semantics differentiably — sphere silhouettes
+and sphere/loose soft shadows exact, mesh facts frozen (see its
 docstring). The composed path (fit.py chunked/remat) remains the
 exact-reference fallback.
 
@@ -60,89 +60,113 @@ import numpy as np
 from unity_raytracer_tpu.models.scene import Materials, Scene
 from unity_raytracer_tpu.ops import shade as sh
 from unity_raytracer_tpu.ops.bvh import _mt_one
+from unity_raytracer_tpu.ops.intersect import (
+    KIND_SPHERE, KIND_TRI, dot3, nearest_hit)
 from unity_raytracer_tpu.ops.shade import SHADOW_EPS, take_rows
 from unity_raytracer_tpu.utils.config import RenderConfig
 
 # records tuple, each stacked over segments (leading dim B):
 #   hard: (t [B,N], n [B,N,3], matid [B,N], occbits [B,N])
-#   soft (trace_records(soft=True)): + (st [B,N,L] min occluder t)
+#   soft (trace_records(soft=True)): + (st [B,N,L] min mesh-occluder t)
 Records = Tuple[jnp.ndarray, ...]
+_BIG = 3.0e38   # "no occluder" in the soft st record
 
 
 def combined_materials(scene: Scene) -> Materials:
-    """One material table in the megakernel's combined id order:
-    sphere ++ loose-triangle ++ per-mesh rows (mega.build_aux)."""
+    """One material table in combined id order: sphere ++ loose-triangle
+    ++ per-mesh rows (the order of ops/shade.surface_attributes)."""
     return jax.tree.map(
         lambda a, b, c: jnp.concatenate([a, b, c], axis=0),
         scene.spheres.materials, scene.triangles.materials,
         scene.meshes.mesh_materials)
 
 
+@partial(jax.jit, static_argnames=("cfg", "soft"))
 def trace_records(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
-                  cfg: RenderConfig, bvh,
+                  cfg: RenderConfig, bvh=None,
                   soft: bool = False) -> Tuple[jnp.ndarray, Records]:
-    """Fused megakernel bounce chain with hit recording.
+    """Hard-visibility mirror bounce chain with hit recording.
 
-    Returns ``(acc [N,3], records)`` with each record stacked over the
-    ``max_bounces+1`` segments: t/n/matid/occbits with leading dim B.
+    Returns ``(acc [N,3], records)``: ``acc`` the radiance (0-255 scale,
+    equal to ``trace_radiance`` at temps 0) and each record stacked over
+    the ``max_bounces+1`` segments with leading dim B:
+
+    * ``t`` — winner distance, -1 on a miss or a retired lane;
+    * ``n`` — the shading normal used;
+    * ``matid`` — combined material id (sphere ++ loose ++ mesh rows);
+    * ``occbits`` — bit ``l`` set where light ``l``'s shadow ray was
+      issued and found an occluder closer than the light.
+
     Everything is stop-gradient (the records are facts, not functions).
-
-    ``soft=True``: shadow walks run in MIN mode and the records gain
-    ``st [B, N, L]`` — the per-light min occluder distance the
-    soft-shadow replay needs (trace_segment record_soft).
+    ``soft=True``: shadow walks run in MIN mode (``any_hit=False``) and
+    the records gain ``st [B, N, L]`` — per light, the minimum
+    mesh-occluder distance below the light distance (``_BIG`` when none
+    or when the query was not issued), what the soft-shadow replay needs.
     """
-    from unity_raytracer_tpu.ops.pallas.mega import build_aux, trace_segment
-
+    scene = jax.lax.stop_gradient(scene)
+    o = jax.lax.stop_gradient(o)
+    d = jax.lax.stop_gradient(d)
     n_rays = o.shape[0]
     L = scene.lights.positions.shape[0]
-    aux = build_aux(scene, cfg.background)
-    kw = dict(n_lights=L,
-              n_spheres=scene.spheres.count,
-              n_tris=scene.triangles.count,
-              max_bounces=cfg.max_bounces,
-              interpret=jax.default_backend() == "cpu",
-              tile_r=cfg.tile_r,
-              use_wide=cfg.bvh_arity != 0,
-              fuse_shadows=cfg.fuse_shadows,
-              walk_unroll=cfg.walk_unroll,
-              occ_mode=cfg.occ_mode,
-              light_cull=cfg.light_cull,
-              tri_isect=cfg.tri_isect,
-              shadow_batch=cfg.shadow_batch,
-              stale_prune=cfg.stale_prune,
-              near_mode=cfg.near_mode,
-              record=True,
-              record_soft=soft)
+    S = scene.spheres.count
+    T = scene.triangles.count
+    bg = jnp.asarray(cfg.background, jnp.float32) * 255.0
 
-    acc0 = jnp.zeros((n_rays, 3), jnp.float32)
-    thr0 = jnp.ones((n_rays, 3), jnp.float32)
-    tmax0 = jnp.full((n_rays,), 3.0e38, jnp.float32)
+    def live_seg(args):
+        o, d, thr, active, acc, depth = args
+        hit = nearest_hit(scene, o, d, bvh=bvh, kernel=cfg.kernel,
+                          t_max=jnp.where(active, 3.0e38, -1.0))
+        hit_mask = hit.is_hit & active
+        p = o + d * jnp.where(hit_mask, hit.t, 1.0)[:, None]
+        n, mats = sh.surface_attributes(scene, p, hit)
+        q = sh.shadow_queries(scene, p, n, mats, bvh=bvh,
+                              kernel=cfg.kernel, mask=hit_mask,
+                              light_cull=cfg.light_cull, any_hit=not soft)
+        local = sh.direct_lighting(scene, p, n, -d, mats, query=q)
+        contrib = jnp.where(hit_mask[:, None], local, bg[None, :])
+        acc = acc + thr * contrib * active[:, None]
+
+        idx = jnp.clip(hit.index, 0, None)
+        comb = jnp.where(hit.kind == KIND_SPHERE, idx,
+                         jnp.where(hit.kind == KIND_TRI, S + idx,
+                                   S + T + jnp.clip(hit.mesh_index, 0,
+                                                    None)))
+        occ = q.need & (q.st * q.st < q.ldist_sq)                  # [N,L]
+        bits = jnp.zeros((n_rays,), jnp.int32)
+        for l in range(L):
+            bits = bits | (occ[:, l].astype(jnp.int32) << l)
+        rec = (jnp.where(hit_mask, hit.t, -1.0),
+               jnp.where(hit_mask[:, None], n, 0.0),
+               jnp.where(hit_mask, comb, -1).astype(jnp.float32),
+               bits.astype(jnp.float32))
+        if soft:
+            rec = rec + (jnp.where(jnp.isfinite(q.st_mesh), q.st_mesh,
+                                   _BIG),)
+        cont = hit_mask & mats.is_mirror & (depth < cfg.max_bounces)
+        thr = jnp.where(cont[:, None], thr * mats.mirror, thr)
+        o = p + n * SHADOW_EPS    # Reflect origin offset (:368-373)
+        d = jnp.where(cont[:, None], sh.reflect_dir(d, n), d)
+        return (o, d, thr, cont, acc), rec
+
+    def dead_seg(args):
+        o, d, thr, active, acc, depth = args
+        rec = (jnp.full((n_rays,), -1.0, jnp.float32),
+               jnp.zeros((n_rays, 3), jnp.float32),
+               jnp.full((n_rays,), -1.0, jnp.float32),
+               jnp.zeros((n_rays,), jnp.float32))
+        if soft:
+            rec = rec + (jnp.full((n_rays, L), _BIG, jnp.float32),)
+        return (o, d, thr, active, acc), rec
 
     def bounce(carry, depth):
-        o, d, thr, tmax, acc = carry
+        o, d, thr, active, acc = carry
+        return jax.lax.cond(jnp.any(active), live_seg, dead_seg,
+                            (o, d, thr, active, acc, depth))
 
-        def live_seg(args):
-            o, d, thr, tmax, acc = args
-            delta, o2, d2, thr2, tm2, rec = trace_segment(
-                bvh, aux, depth, o, d, thr, tmax, **kw)
-            return (o2, d2, thr2, tm2, acc + delta), rec
-
-        def dead_seg(args):
-            rec = (jnp.full((n_rays,), -1.0, jnp.float32),
-                   jnp.zeros((n_rays, 3), jnp.float32),
-                   jnp.full((n_rays,), -1.0, jnp.float32),
-                   jnp.zeros((n_rays,), jnp.float32))
-            if soft:
-                rec = rec + (jnp.full((n_rays, L), 3.0e38, jnp.float32),)
-            return args, rec
-
-        carry, rec = jax.lax.cond(jnp.any(tmax >= 0.0), live_seg,
-                                  dead_seg, (o, d, thr, tmax, acc))
-        return carry, rec
-
+    init = (o, d, jnp.ones((n_rays, 3), jnp.float32),
+            jnp.ones((n_rays,), bool), jnp.zeros((n_rays, 3), jnp.float32))
     (_, _, _, _, acc), recs = jax.lax.scan(
-        bounce, (o, d, thr0, tmax0, acc0),
-        jnp.arange(cfg.max_bounces + 1), unroll=1)
+        bounce, init, jnp.arange(cfg.max_bounces + 1))
     return acc, recs
 
 
@@ -151,8 +175,8 @@ def _sphere_t(o, d, center, r2, selected):
     the per-lane SELECTED sphere; differentiable w.r.t. center/r2.
     Guarded so non-selected lanes stay finite with zero gradient."""
     oc = o - center
-    uoc = jnp.sum(d * oc, axis=-1)
-    oc2 = jnp.sum(oc * oc, axis=-1)
+    uoc = dot3(d, oc)
+    oc2 = dot3(oc, oc)
     disc = uoc * uoc - (oc2 - r2)
     # double-where with exact forward: masked/tangent lanes contribute a
     # zero subgradient instead of sqrt'(0)=inf (ops/intersect._safe_sqrt)
@@ -196,11 +220,10 @@ def _winner_geometry(scene: Scene, o, d, t_rec, n_rec, comb_f, hit):
     # == t_rec exactly, d t/d(o,d) preserved for mirror-chain gradients
     p0 = (jax.lax.stop_gradient(o)
           + jax.lax.stop_gradient(d) * t_rec[:, None])
-    denom = jnp.sum(n_rec * d, axis=-1)
+    denom = dot3(n_rec, d)
     denom = jnp.where(jnp.abs(denom) < 1e-12, 1.0, denom)
-    t_mesh = jnp.sum(n_rec * (p0 - o), axis=-1) / denom + \
-        jax.lax.stop_gradient(t_rec - jnp.sum(n_rec * (p0 - o),
-                                              axis=-1) / denom)
+    t_mesh = dot3(n_rec, p0 - o) / denom + \
+        jax.lax.stop_gradient(t_rec - dot3(n_rec, p0 - o) / denom)
     t = jnp.where(hit & (comb_f >= S + T), t_mesh, t_rec)
     n = n_rec
     if S:
@@ -230,16 +253,16 @@ def replay_lighting(scene: Scene, p, n, v, mats: Materials,
         return color
 
     lvec = scene.lights.positions[None, :, :] - p[:, None, :]   # [N,L,3]
-    ldist_sq = jnp.sum(lvec * lvec, axis=-1)
+    ldist_sq = dot3(lvec, lvec)
     ldir = lvec * jax.lax.rsqrt(jnp.maximum(ldist_sq, 1e-60))[..., None]
-    ln = jnp.sum(ldir * n[:, None, :], axis=-1)                 # [N,L]
+    ln = dot3(ldir, n[:, None, :])                              # [N,L]
 
     occ = jnp.stack([(occ_int >> l) & 1 for l in range(L)],
                     axis=1) > 0                                 # [N,L]
     need = (ln >= 0.0) & scene.lights.valid[None, :] & mask[:, None]
     if light_cull > 0.0:
-        # same attenuation gate as the recording megakernel — culled
-        # lanes' bits were never computed, so their terms must stay off
+        # same attenuation gate as the recording pass — culled lanes'
+        # bits were never computed, so their terms must stay off
         kdks = (jnp.max(mats.diffuse, axis=-1)
                 + jnp.max(mats.specular, axis=-1))
         imax = jnp.max(scene.lights.intensities, axis=-1)
@@ -253,19 +276,21 @@ def replay_lighting(scene: Scene, p, n, v, mats: Materials,
                * jnp.maximum(0.0, ln)[..., None] * irr)
 
     hv = ldir + v[:, None, :]
-    hv = hv * jax.lax.rsqrt(
-        jnp.maximum(jnp.sum(hv * hv, axis=-1, keepdims=True), 1e-60))
-    nh = jnp.maximum(0.0, jnp.sum(n[:, None, :] * hv, axis=-1))
-    # nh > 0 gate mirrors the megakernel exactly: without it,
+    hv = hv * jax.lax.rsqrt(jnp.maximum(dot3(hv, hv), 1e-60))[..., None]
+    nh = jnp.maximum(0.0, dot3(n[:, None, :], hv))
+    # nh > 0 gate mirrors shade.direct_lighting exactly: without it,
     # exp(phong*log(max(nh,1e-30))) evaluates to 1.0 at nh==0 when
-    # phong==0, adding false specular light (advisor r3 finding)
+    # phong==0, adding false specular light
     spec_term = jnp.where(
         nh > 0.0,
         jnp.exp(mats.phong[:, None] * jnp.log(jnp.maximum(nh, 1e-30))),
         0.0)
     spec = mats.specular[:, None, :] * spec_term[..., None] * irr
 
-    return color + jnp.sum((diffuse + spec) * vis[..., None], axis=1)
+    terms = (diffuse + spec) * vis[..., None]                   # [N,L,3]
+    for l in range(L):  # static light count, no reduce op
+        color = color + terms[:, l]
+    return color
 
 
 def replay_radiance(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
@@ -319,12 +344,9 @@ def replay_radiance(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
     # zero (live gates the add) and feed only further dead segments, so
     # processing just the live PREFIX is exact. The prefix length is a
     # STATIC argument (``live_segments``, measured once by the caller —
-    # bench.py / fit.py): a dynamic lax.cond skip was tried and REVERTED
-    # — under value_and_grad each cond doubles the branch residual
-    # buffers and the 1080p replay RESOURCE_EXHAUSTs a v5e (r4 session,
-    # docs/measurements/tpu_r4.jsonl). This cuts the replay's fwd+bwd
-    # [N,L] tensor work from B segments to the live prefix — the r3
-    # "replay tax" was ~61ms with all 5 segments replayed (VERDICT #2).
+    # bench.py / fit.py): under value_and_grad a dynamic lax.cond skip
+    # would keep both branches' residual buffers. This cuts the replay's
+    # fwd+bwd [N,L] tensor work from B segments to the live prefix.
     for s in range(B if live_segments is None
                    else min(B, max(1, live_segments))):
         t_rec = jax.lax.stop_gradient(rt_all[s])
@@ -347,9 +369,8 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
     silhouette gradients flow; the mesh branch is a frozen constant.
 
     Every temporary is [N]- or [N,3]-shaped (static unroll over lights /
-    spheres / loose tris): a first [N,L,S]-vectorized form spent ~100ms
-    per step in L-major broadcast/reshape traffic on v5e (xprof_soft
-    trace, r4e session) — rank-3 intermediates tile poorly on TPU.
+    spheres / loose tris), so no rank-3 [N,L,S] intermediates are
+    materialized.
 
     ``diag_proxy`` (optional [N] bool — the segment's proxy-adopted
     lanes) switches on the BIAS DIAGNOSTICS return: the function then
@@ -363,7 +384,7 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
       the mesh-soup AABB — lanes whose assumed-no-mesh-occlusion may be
       wrong (the hard forward never queried them).
 
-    Compile-time note (VERDICT r4 weak #5): the static unrolls make
+    Compile-time note: the static unrolls make
     compile time scale with S * L and T * L; at the presets' table
     sizes (S, T <= ~16) this is seconds, but hundreds of spheres or
     loose triangles would blow up compilation quadratically-ish —
@@ -404,16 +425,16 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
         lp = scene.lights.positions[l]
         lint = scene.lights.intensities[l]                      # [3]
         lvec = lp[None, :] - p                                  # [N,3]
-        ld2 = jnp.sum(lvec * lvec, axis=-1)
+        ld2 = dot3(lvec, lvec)
         linv = jax.lax.rsqrt(jnp.maximum(ld2, 1e-60))
         ldir = lvec * linv[:, None]
-        ln = jnp.sum(ldir * n, axis=-1)
+        ln = dot3(ldir, n)
 
         st = jnp.full_like(ld2, big)
         for s in range(S):
             oc = so - scene.spheres.centers[s][None, :]
-            uoc = jnp.sum(ldir * oc, axis=-1)
-            oc2 = jnp.sum(oc * oc, axis=-1)
+            uoc = dot3(ldir, oc)
+            oc2 = dot3(oc, oc)
             disc = uoc * uoc - (oc2 - scene.spheres.radius_sq[s])
             pos = disc > 0.0
             # double-where: masked lanes get a zero subgradient
@@ -461,12 +482,12 @@ def _soft_lighting(scene: Scene, p, n, v, mats: Materials,
         irr_s = 1.0 / jnp.maximum(ld2, 1e-60)                   # [N]
         dterm = jnp.maximum(0.0, ln) * irr_s * vis
         hv = ldir + v
-        hv = hv * jax.lax.rsqrt(jnp.maximum(
-            jnp.sum(hv * hv, axis=-1, keepdims=True), 1e-60))
-        nh = jnp.maximum(0.0, jnp.sum(n * hv, axis=-1))
-        # nh > 0 gate mirrors the megakernel (and replay_lighting): at
-        # nh == 0 with phong == 0, nh**phong evaluates to 1 and leaks
-        # specular light the kernel never emits (advisor r4 finding).
+        hv = hv * jax.lax.rsqrt(jnp.maximum(dot3(hv, hv), 1e-60))[:, None]
+        nh = jnp.maximum(0.0, dot3(n, hv))
+        # nh > 0 gate mirrors shade.direct_lighting (and
+        # replay_lighting): at nh == 0 with phong == 0, nh**phong
+        # evaluates to 1 and leaks specular light the forward never
+        # emits.
         # Double-where keeps d(nh**phong)/d(nh) = inf at nh==0 (phong<1)
         # off the masked lanes.
         pos_nh = nh > 0.0
@@ -491,10 +512,10 @@ def replay_radiance_soft(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
                          live_segments: int | None = None,
                          with_diag: bool = False) -> jnp.ndarray:
     """Differentiable SOFT-visibility radiance from soft records — the
-    fast silhouette-fitting path (VERDICT r3 next-step #3).
+    fast silhouette-fitting path.
 
     Under ``straight_through`` the forward VALUE equals the hard
-    megakernel image exactly (soft terms enter gradients only).
+    forward image exactly (soft terms enter gradients only).
     Gradient semantics vs the composed soft path:
 
     * sphere silhouettes (soft_hit proxy/winner margins) and sphere /
@@ -543,17 +564,15 @@ def replay_radiance_soft(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
             # sphere silhouette relaxation — the proxy-adoption and
             # margin-blend logic of render._local_radiance, computed as
             # a running argmax over the (small, unrolled) sphere table
-            # in [N]-shaped temps. NO per-lane take_along_axis: six such
-            # gathers measured 3.6ms/chunk EACH on v5e — 30% of the
-            # whole soft step (xprof_soft trace, r4e session).
+            # in [N]-shaped temps — no per-lane take_along_axis.
             margs = []
             m_best = jnp.full((n_rays,), -jnp.inf)
             j_best = jnp.zeros((n_rays,), jnp.int32)
             t_prox = jnp.full((n_rays,), 1e-3)
             for si in range(S):
                 oc = o - scene.spheres.centers[si][None, :]
-                uoc = jnp.sum(d * oc, axis=-1)
-                oc2 = jnp.sum(oc * oc, axis=-1)
+                uoc = dot3(d, oc)
+                oc2 = dot3(oc, oc)
                 r2s = scene.spheres.radius_sq[si]
                 disc = uoc * uoc - (oc2 - r2s)
                 marg = disc / jnp.maximum(r2s, 1e-12)
@@ -570,7 +589,7 @@ def replay_radiance_soft(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
             p = sel3(use_proxy, o + d * t_prox[:, None], p)
             n_prox = p - c_prox
             n_prox = n_prox * jax.lax.rsqrt(jnp.maximum(
-                jnp.sum(n_prox * n_prox, axis=-1, keepdims=True), 1e-60))
+                dot3(n_prox, n_prox), 1e-60))[:, None]
             n = sel3(use_proxy, n_prox, n)
             comb2 = jnp.where(use_proxy, j_best, comb)
             shade_mask = hit | use_proxy
@@ -670,11 +689,9 @@ def trace_radiance_replay_soft(scene: Scene, o: jnp.ndarray,
                                bvh, live_segments: int | None = None,
                                chunk: int | None = None) -> jnp.ndarray:
     """Soft records + differentiable soft replay in one jit. Forward
-    equals the hard megakernel image (straight-through); gradients carry
+    equals the hard forward image (straight-through); gradients carry
     the soft silhouette/shadow terms. ``chunk`` bounds the replay's
-    working set (lax.map over record chunks) — the full-frame soft
-    replay's [N,L,S] temps otherwise exhaust a v5e at 1080p (r4b
-    session log)."""
+    working set (lax.map over record chunks) at frame sizes."""
     _, recs = trace_records(scene, o, d, cfg, bvh, soft=True)
     if not chunk or chunk >= o.shape[0]:
         return replay_radiance_soft(scene, o, d, recs, cfg,
@@ -716,7 +733,7 @@ def soft_replay_value_and_grad(template: Scene, params, o, d, target,
                                cfg: RenderConfig, bvh, weights=None,
                                live_segments: int | None = None,
                                chunk: int | None = None):
-    """Fused SOFT fwd+bwd step at megakernel speed: min-mode records
+    """Fused SOFT fwd+bwd step: min-mode records
     with the CURRENT params + pixel-MSE value_and_grad through the soft
     replay — the fast path for silhouette fitting (the composed
     remat+chunked path remains the exact-reference fallback).
@@ -768,8 +785,8 @@ def soft_replay_value_and_grad(template: Scene, params, o, d, target,
 def trace_radiance_replay(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
                           cfg: RenderConfig, bvh) -> jnp.ndarray:
     """Forward records + differentiable replay in one jit — the radiance
-    equals the megakernel's to fp-reassociation noise, and gradients
-    flow to every fit.PARAM_PATHS parameter class."""
+    equals ``trace_radiance``'s to fp-reassociation noise, and gradients
+    flow to every fit.PARAM_PATHS parameter class but 'mesh_verts'."""
     _, recs = trace_records(scene, o, d, cfg, bvh)
     return replay_radiance(scene, o, d, recs, cfg)
 
@@ -787,7 +804,7 @@ def live_depth(records) -> int:
 def replay_value_and_grad(template: Scene, params, o, d, target,
                           cfg: RenderConfig, bvh, weights=None,
                           live_segments: int | None = None):
-    """One fused fwd+bwd step: megakernel forward (records) with the
+    """One fused fwd+bwd step: hard forward (records) with the
     CURRENT params + pixel-MSE value_and_grad through the replay.
     ``target`` is radiance on the 0-255 scale, shaped [N,3] like the
     ray batch. This is the unit bench.py times as fwd+bwd."""

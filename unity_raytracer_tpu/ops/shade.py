@@ -9,7 +9,7 @@ image assembly.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from unity_raytracer_tpu.models.scene import Materials, Scene
 from unity_raytracer_tpu.ops import intersect as isect
 from unity_raytracer_tpu.ops.intersect import (
-    Hit, KIND_MESH, KIND_SPHERE, KIND_TRI)
+    Hit, KIND_MESH, KIND_SPHERE, KIND_TRI, dot3)
 
 SHADOW_EPS = 1e-4  # ShadowRayEpsilon, RayTracingSetup.cs:42
 
@@ -26,20 +26,18 @@ def _sel3(mask: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(mask[:, None], a, b)
 
 
-_SMALL_TABLE = 32
 
 
 def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """Row lookup that avoids XLA gather for small tables.
 
-    TPU gathers cost ~0.05-0.15s per 2M-row lookup on v5e even from tiny
-    tables (scripts/glue_study.py); for tables with <= 32 rows an unrolled
-    masked-select chain is pure elementwise VPU work that XLA fuses into
-    neighbouring ops. Falls back to a real gather for big tables.
-    ``idx`` must already be clipped to [0, rows).
+    For tables with <= 32 rows an unrolled masked-select chain is pure
+    elementwise work that XLA fuses into neighbouring ops. Falls back to
+    a real gather for big tables. ``idx`` must already be clipped to
+    [0, rows).
     """
     r = table.shape[0]
-    if r > _SMALL_TABLE:
+    if r > isect._SMALL_TABLE:
         return jnp.take(table, idx, axis=0)
     m = idx[(...,) + (None,) * (table.ndim - 1)]  # broadcast over row dims
     out = jnp.broadcast_to(table[0], idx.shape + table.shape[1:])
@@ -72,8 +70,7 @@ def surface_attributes(scene: Scene, p: jnp.ndarray,
     # sphere normal: normalize(p - center)
     sc = take_rows(scene.spheres.centers, jnp.clip(idx, 0, s_cnt - 1))
     sn = p - sc
-    sn = sn * jax.lax.rsqrt(
-        jnp.maximum(jnp.sum(sn * sn, axis=-1, keepdims=True), 1e-60))
+    sn = sn * jax.lax.rsqrt(jnp.maximum(dot3(sn, sn), 1e-60))[:, None]
 
     tn = take_rows(scene.triangles.normals, jnp.clip(idx, 0, t_cnt - 1))
     if hit.mesh_n is not None:
@@ -114,19 +111,21 @@ def surface_attributes(scene: Scene, p: jnp.ndarray,
 
 def shadow_min_t(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
                  bvh=None, t_max: jnp.ndarray | None = None,
-                 kernel: str = "auto", any_hit: bool = False) -> jnp.ndarray:
+                 kernel: str = "auto", any_hit: bool = False,
+                 with_mesh: bool = False):
     """Minimum hit distance per ray (no identity), +inf on miss.
 
     The reference issues a *full* nearest-hit query per shadow ray
     (RayTracingSetup.cs:333) but only consumes the distance; the occlusion
     predicate ``min_t^2 < light_dist^2`` is equivalent under nearest- or
     any-hit, so this cheaper min-reduction is exact. With a BVH, ``t_max``
-    (the light distance) seeds the traversal cull so far subtrees prune;
+    (the light distance) seeds the walk's cull so far subtrees prune;
     negative ``t_max`` culls a lane outright. ``any_hit`` stops a lane at
     its first occluder (hard-shadow queries only — the returned t is *an*
     occluder distance below t_max, sufficient for the occlusion predicate
     but not the minimum, so keep it off when soft-shadow gradients need
-    the true min margin).
+    the true min margin). ``with_mesh`` also returns the mesh triangles'
+    own distance (the soft replay records).
     """
     if bvh is None:
         t_m = isect.ray_triangles(o, d, scene.meshes.verts,
@@ -135,12 +134,15 @@ def shadow_min_t(scene: Scene, o: jnp.ndarray, d: jnp.ndarray,
         from unity_raytracer_tpu.ops.bvh import traverse_any
         t_m, _, _ = traverse_any(bvh, o, d, t_max=t_max, kernel=kernel,
                                  any_hit=any_hit)
-    t_s = isect.ray_spheres(o, d, scene.spheres.centers,
-                            scene.spheres.radius_sq, scene.spheres.valid)
-    t_t = isect.ray_triangles(o, d, scene.triangles.verts, scene.triangles.valid)
-    t = jnp.minimum(jnp.minimum(t_m, t_s.min(axis=1)), t_t.min(axis=1))
+    t_s, _ = isect._best(isect.ray_spheres(
+        o, d, scene.spheres.centers, scene.spheres.radius_sq,
+        scene.spheres.valid))
+    t_t, _ = isect._best(isect.ray_triangles(
+        o, d, scene.triangles.verts, scene.triangles.valid))
+    t = jnp.minimum(jnp.minimum(t_m, t_s), t_t)
     in_box = isect.ray_aabb(o, d, scene.aabb_min[None, :], scene.aabb_max[None, :])
-    return jnp.where(in_box, t, jnp.inf)
+    t = jnp.where(in_box, t, jnp.inf)
+    return (t, t_m) if with_mesh else t
 
 
 def _soft_or_hard_vis(hard: jnp.ndarray, margin: jnp.ndarray, temp: float,
@@ -156,6 +158,69 @@ def _soft_or_hard_vis(hard: jnp.ndarray, margin: jnp.ndarray, temp: float,
     return soft
 
 
+class LightQuery(NamedTuple):
+    """Per-(lane, light) geometry and the shadow query's result."""
+
+    ldist_sq: jnp.ndarray    # [N,L]
+    ldir: jnp.ndarray        # [N,L,3]
+    ln: jnp.ndarray          # [N,L] l.n
+    need: jnp.ndarray        # [N,L] bool: shadow ray issued
+    keep: jnp.ndarray        # [N,L] float: light kept by light_cull
+    st: jnp.ndarray          # [N,L] occluder distance (+inf: none)
+    st_mesh: jnp.ndarray     # [N,L] mesh triangles' own distance
+
+
+def shadow_queries(scene: Scene, p: jnp.ndarray, n: jnp.ndarray,
+                   mats: Materials, bvh=None, kernel: str = "auto",
+                   mask: jnp.ndarray | None = None,
+                   light_cull: float = 0.0,
+                   any_hit: bool = True) -> LightQuery:
+    """Light geometry + one shadow query per (lane, light) that matters.
+
+    ``mask`` (optional [N]) marks lanes whose result is consumed;
+    back-facing lights (l.n < 0) contribute exactly zero with zero
+    parameter gradient, so their shadow rays are culled too, as are
+    lights dropped by ``light_cull`` (lanes whose conservative bound
+    (max(kd)+max(ks))*max(I)/d^2 is below the threshold skip the query
+    AND the light's contribution; bounded error <= threshold per light
+    per segment). Culled queries report +inf.
+    """
+    L = scene.lights.positions.shape[0]
+    N = p.shape[0]
+    lvec = scene.lights.positions[None, :, :] - p[:, None, :]      # [N,L,3]
+    ldist_sq = dot3(lvec, lvec)                                    # [N,L]
+    ldist = jnp.sqrt(ldist_sq)
+    ldir = lvec / ldist[..., None]
+    ln = dot3(ldir, n[:, None, :])                                 # [N,L]
+
+    need = (ln >= 0.0) & scene.lights.valid[None, :]               # [N,L]
+    if mask is not None:
+        need = need & mask[:, None]
+    keep = jnp.ones_like(ldist_sq)
+    if light_cull > 0.0:
+        kdks = (jnp.max(mats.diffuse, axis=-1)
+                + jnp.max(mats.specular, axis=-1))                 # [N]
+        imax = jnp.max(scene.lights.intensities, axis=-1)          # [L]
+        cull_keep = (kdks[:, None] * imax[None, :]
+                     >= light_cull * ldist_sq)                     # [N,L]
+        need = need & cull_keep
+        keep = cull_keep.astype(jnp.float32)
+
+    so = p + n * SHADOW_EPS                                        # [N,3]
+    # LIGHT-MAJOR layout: each walk-kernel block then carries a single
+    # light direction (coherent walks) instead of interleaving L
+    # different directions per block
+    so_lm = jnp.broadcast_to(so[None, :, :], (L, N, 3)).reshape(-1, 3)
+    sd_lm = jnp.transpose(ldir, (1, 0, 2)).reshape(-1, 3)
+    tmax_lm = jnp.where(need, ldist, -1.0).T.reshape(-1)
+    st, st_mesh = shadow_min_t(scene, so_lm, sd_lm, bvh=bvh,
+                               t_max=tmax_lm, kernel=kernel,
+                               any_hit=any_hit, with_mesh=True)
+    st = jnp.where(need, st.reshape(L, N).T, jnp.inf)
+    st_mesh = jnp.where(need, st_mesh.reshape(L, N).T, jnp.inf)
+    return LightQuery(ldist_sq, ldir, ln, need, keep, st, st_mesh)
+
+
 def direct_lighting(scene: Scene, p: jnp.ndarray, n: jnp.ndarray,
                     v: jnp.ndarray, mats: Materials,
                     soft_shadow_temp: float = 0.0,
@@ -163,7 +228,8 @@ def direct_lighting(scene: Scene, p: jnp.ndarray, n: jnp.ndarray,
                     kernel: str = "auto",
                     mask: jnp.ndarray | None = None,
                     light_cull: float = 0.0,
-                    with_stats: bool = False) -> jnp.ndarray:
+                    with_stats: bool = False,
+                    query: LightQuery | None = None) -> jnp.ndarray:
     """Ambient + per-light shadowed diffuse + Blinn-Phong specular, [N,3].
 
     Mirrors the light loop (RayTracingSetup.cs:324-356):
@@ -175,54 +241,17 @@ def direct_lighting(scene: Scene, p: jnp.ndarray, n: jnp.ndarray,
       zeroed when the light is behind the surface (l.n < 0 — the reference
       computes ``degrees(acos(l.n)) > 90``, :375-400)
 
-    ``mask`` (optional [N]) marks lanes whose result is consumed (hit /
-    proxy-hit and still active in the bounce chain); shadow queries are
-    culled for masked-off lanes. Back-facing lights (l.n < 0) contribute
-    exactly zero diffuse AND specular, with zero parameter gradient
-    (max(0,·) and the hard spec gate both clamp), so their shadow rays are
-    culled too — the packet kernel skips culled lanes entirely.
+    The shadow queries are ``shadow_queries`` (``mask`` and
+    ``light_cull`` documented there); ``query`` passes in ones already
+    made (the replay records).
     """
-    L = scene.lights.positions.shape[0]
-    N = p.shape[0]
+    if query is None:
+        query = shadow_queries(scene, p, n, mats, bvh=bvh, kernel=kernel,
+                               mask=mask, light_cull=light_cull,
+                               any_hit=(soft_shadow_temp <= 0.0))
+    ldist_sq, ldir, ln, need, keep, st, _ = query
 
     color = mats.ambient * scene.lights.ambient[None, :]  # [N,3] (:438-441)
-
-    lvec = scene.lights.positions[None, :, :] - p[:, None, :]      # [N,L,3]
-    ldist_sq = jnp.sum(lvec * lvec, axis=-1)                       # [N,L]
-    ldist = jnp.sqrt(ldist_sq)
-    ldir = lvec / ldist[..., None]
-    ln = jnp.sum(ldir * n[:, None, :], axis=-1)                    # [N,L]
-
-    need = (ln >= 0.0) & scene.lights.valid[None, :]               # [N,L]
-    if mask is not None:
-        need = need & mask[:, None]
-    if light_cull > 0.0:
-        # per-light attenuation culling (cfg.light_cull): lanes whose
-        # conservative bound (max(kd)+max(ks))*max(I)/d^2 is below the
-        # threshold skip the shadow query AND the light's contribution —
-        # same gate (and same skip-entirely convention) as the megakernel
-        # (bounded error <= threshold per light per segment)
-        kdks = (jnp.max(mats.diffuse, axis=-1)
-                + jnp.max(mats.specular, axis=-1))                 # [N]
-        imax = jnp.max(scene.lights.intensities, axis=-1)          # [L]
-        cull_keep = (kdks[:, None] * imax[None, :]
-                     >= light_cull * ldist_sq)                     # [N,L]
-        need = need & cull_keep
-    else:
-        cull_keep = None
-
-    so = p + n * SHADOW_EPS                                        # [N,3]
-    # LIGHT-MAJOR layout: each packet-kernel tile then carries a single
-    # light direction (coherent union path) instead of interleaving L
-    # different directions per tile
-    so_lm = jnp.broadcast_to(so[None, :, :], (L, N, 3)).reshape(-1, 3)
-    sd_lm = jnp.transpose(ldir, (1, 0, 2)).reshape(-1, 3)
-    tmax_lm = jnp.where(need, ldist, -1.0).T.reshape(-1)
-    st = shadow_min_t(scene, so_lm, sd_lm, bvh=bvh,
-                      t_max=tmax_lm, kernel=kernel,
-                      any_hit=(soft_shadow_temp <= 0.0)
-                      ).reshape(L, N).T
-
     occluded = (st * st) < ldist_sq                                # [N,L]
     vis = _soft_or_hard_vis(~occluded, (st * st) - ldist_sq,
                             soft_shadow_temp, straight_through)
@@ -231,12 +260,12 @@ def direct_lighting(scene: Scene, p: jnp.ndarray, n: jnp.ndarray,
     diffuse = mats.diffuse[:, None, :] * jnp.maximum(0.0, ln)[..., None] * irr
 
     hv = ldir + v[:, None, :]
-    hv = hv / jnp.maximum(jnp.linalg.norm(hv, axis=-1, keepdims=True), 1e-30)
-    nh = jnp.maximum(0.0, jnp.sum(n[:, None, :] * hv, axis=-1))    # [N,L]
+    hv = hv / jnp.maximum(jnp.sqrt(dot3(hv, hv)), 1e-30)[..., None]
+    nh = jnp.maximum(0.0, dot3(n[:, None, :], hv))                 # [N,L]
     spec_mask = (ln >= 0.0).astype(jnp.float32)                    # behind cut
-    # nh > 0 gate (megakernel / replay parity): 0**0 == 1 would leak
-    # specular for phong==0 materials on back-halfway lanes. Double-where
-    # keeps the nh==0 power-rule gradient (inf for phong<1) masked out.
+    # nh > 0 gate (replay parity): 0**0 == 1 would leak specular for
+    # phong==0 materials on back-halfway lanes. Double-where keeps the
+    # nh==0 power-rule gradient (inf for phong<1) masked out.
     pos_nh = nh > 0.0
     spec_term = jnp.where(
         pos_nh, jnp.where(pos_nh, nh, 1.0) ** mats.phong[:, None], 0.0)
@@ -244,12 +273,12 @@ def direct_lighting(scene: Scene, p: jnp.ndarray, n: jnp.ndarray,
             * spec_term[..., None] * irr
             * spec_mask[..., None])
 
-    lvalid = scene.lights.valid[None, :, None].astype(jnp.float32)
-    if cull_keep is not None:
-        # zero the culled light's terms too — without this the culled
-        # (unqueried) lanes would leak UNSHADOWED light instead of none
-        lvalid = lvalid * cull_keep[..., None].astype(jnp.float32)
-    color = color + jnp.sum((diffuse + spec) * vis[..., None] * lvalid, axis=1)
+    # culled lights contribute nothing (not unshadowed light)
+    lvalid = (scene.lights.valid[None, :, None].astype(jnp.float32)
+              * keep[..., None])
+    terms = (diffuse + spec) * vis[..., None] * lvalid              # [N,L,3]
+    for l in range(terms.shape[1]):  # static light count, no reduce op
+        color = color + terms[:, l]
     if with_stats:  # live shadow-query lanes (bench honest accounting)
         return color, jnp.sum(need.astype(jnp.int32))
     return color
@@ -259,7 +288,7 @@ def reflect_dir(d: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     """Mirror direction. The reference computes ``2 n (v.n) - v`` with
     ``v = -d`` (Reflect, RayTracingSetup.cs:368-373); equivalently
     ``d - 2 n (d.n)``. Unit-length when d, n are."""
-    return d - 2.0 * n * jnp.sum(d * n, axis=-1, keepdims=True)
+    return d - 2.0 * n * dot3(d, n)[..., None]
 
 
 def refract_dir(d: jnp.ndarray, n: jnp.ndarray,
@@ -269,7 +298,7 @@ def refract_dir(d: jnp.ndarray, n: jnp.ndarray,
     ``n`` must oppose ``d`` (cos_i = -d.n >= 0). Returns (refracted dir,
     total-internal-reflection mask). On TIR the direction is garbage —
     callers must mask."""
-    cos_i = -jnp.sum(d * n, axis=-1, keepdims=True)
+    cos_i = -dot3(d, n)[..., None]
     k = 1.0 - eta[:, None] ** 2 * (1.0 - cos_i ** 2)
     tir = (k < 0.0)[:, 0]
     # double-where keeps sqrt'(0)=inf from poisoning masked-lane gradients

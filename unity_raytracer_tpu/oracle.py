@@ -2,7 +2,7 @@
 
 The reference (Unity C#) cannot be executed here, so this tiny, deliberately
 naive per-pixel tracer transcribes its math exactly and serves as the
-``allclose`` ground truth for the batched TPU renderer. Every block cites the
+``allclose`` ground truth for the batched renderer. Every block cites the
 reference behavior it mirrors. It is scalar, recursive and slow on purpose —
 clarity over speed; use only on small images in tests.
 

@@ -1,12 +1,13 @@
 """Multi-host process bootstrap (SURVEY.md §5.8).
 
-The reference has no networking of any kind; the TPU-native equivalent is
+The reference has no networking of any kind; the JAX equivalent is
 ``jax.distributed.initialize``: every host process dials the coordinator,
-after which ``jax.devices()`` spans the whole pod slice and the exact same
+after which ``jax.devices()`` spans every host's cards and the exact same
 ``shard_map``/``pjit`` code from parallel/shard.py runs across hosts —
-collectives lower onto ICI within a slice and DCN across slices.
+collectives lower to NCCL over NVLink within a host and the network
+across hosts.
 
-On single-host environments (including this repo's one-chip CI) the
+On single-host environments (including the CPU test suite) the
 functions are no-ops, so every entry point can call ``maybe_initialize``
 unconditionally.
 

@@ -1,8 +1,8 @@
 """Device-mesh construction.
 
 The reference has zero parallelism of any kind (single C# thread; SURVEY.md
-§2 preamble). The TPU-native scaling model: a `jax.sharding.Mesh` over the
-slice, with two meaningful logical axes for a ray tracer —
+§2 preamble). The scaling model: a `jax.sharding.Mesh` over the
+devices, with two meaningful logical axes for a ray tracer —
 
 * ``dp``: the ray/pixel axis (image tiles). Embarrassingly parallel; the
   primary scaling axis (BASELINE config 5). This doubles as the "sequence

@@ -31,7 +31,8 @@ import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from unity_raytracer_tpu.models.camera import Camera, generate_rays
+from unity_raytracer_tpu.models.camera import (
+    Camera, generate_rays, generate_rays_blocks)
 from unity_raytracer_tpu.models.scene import Scene
 from unity_raytracer_tpu.ops import intersect as isect
 from unity_raytracer_tpu.ops.intersect import Hit, KIND_NONE
@@ -39,6 +40,7 @@ from unity_raytracer_tpu.ops.render import trace_radiance, resolve_mode
 from unity_raytracer_tpu.parallel import collectives
 from unity_raytracer_tpu.parallel.mesh import RAY_AXIS, SCENE_AXIS
 from unity_raytracer_tpu.utils.config import RenderConfig
+from unity_raytracer_tpu.utils.swizzle import unswizzle_image
 
 
 def _pad_rays(o, d, multiple: int):
@@ -55,13 +57,19 @@ def render_tiled(scene: Scene, cam: Camera, cfg: RenderConfig, mesh: Mesh,
                  bvh=None) -> jnp.ndarray:
     """Regime 1: explicit shard_map render, rays over ``dp``.
 
-    Returns the [H,W,3] display-scale image. Scene (and BVH) are replicated
-    broadcast operands.
+    Rays are generated in the same pixel-block lane order as
+    ``render_frame`` (each device gets a contiguous run of screen blocks,
+    so the walk kernel's blocks stay coherent). Returns the [H,W,3]
+    display-scale image. Scene (and BVH) are replicated broadcast
+    operands.
     """
-    cfg = resolve_mode(scene, cfg)
-    o, d = generate_rays(cam)
-    n_dp = mesh.shape[RAY_AXIS]
-    o, d, n = _pad_rays(o, d, n_dp)
+    return _render_tiled(scene, cam, resolve_mode(scene, cfg), mesh, bvh)
+
+
+@partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _render_tiled(scene, cam, cfg, mesh, bvh):
+    o, d = generate_rays_blocks(cam, cfg.block_size)
+    o, d, n = _pad_rays(o, d, mesh.shape[RAY_AXIS])
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(), P(RAY_AXIS), P(RAY_AXIS)),
@@ -70,7 +78,8 @@ def render_tiled(scene: Scene, cam: Camera, cfg: RenderConfig, mesh: Mesh,
         return trace_radiance(scene_, o_, d_, cfg, bvh=bvh_)
 
     rad = _go(scene, bvh, o, d)[:n]
-    return rad.reshape(cam.height, cam.width, 3) / 255.0
+    return unswizzle_image(rad, cam.width, cam.height,
+                           cfg.block_size) / 255.0
 
 
 def render_auto(scene: Scene, cam: Camera, cfg: RenderConfig, mesh: Mesh,
@@ -486,9 +495,9 @@ def make_sharded_train_step(template: Scene, cam: Camera, rcfg: RenderConfig,
 
     Returns jitted ``step(params, opt_state, o, d, tgt) ->
     (params, opt_state, loss)`` where o/d/tgt are pre-sharded flat rays.
-    ``bvh``: optional prebuilt (packed) mesh BVH, closed over and
-    replicated — the config-5 shape (BVH + packet kernel under
-    shard_map) rather than the brute-force fallback.
+    ``bvh``: optional prebuilt mesh BVH, closed over and replicated —
+    the config-5 shape (BVH + walk kernel under shard_map) rather than
+    the brute-force fallback.
     """
     from unity_raytracer_tpu.fit import set_params
 

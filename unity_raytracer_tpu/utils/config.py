@@ -44,18 +44,13 @@ class RenderConfig:
     mode: str = "auto"          # 'scan' | 'tree' | 'auto'
     ray_chunk: Optional[int] = None  # rays per chunk (None = all at once)
     use_bvh: bool = False
-    kernel: str = "auto"             # 'auto' | 'xla' | 'pallas' traversal
+    kernel: str = "auto"             # BVH walk: 'auto' | 'xla' |
+    #                                  'interpret' (ops/backend.py)
     block_size: int = 32        # pixel-block lane order (utils/swizzle.py,
     #                             camera.generate_rays_blocks); <=1 keeps
     #                             row-major lane order
-    tile_r: int = 1024          # packet-kernel tile (rays per shared
-    #                             traversal cursor); pair with block_size
-    #                             so a tile covers whole pixel blocks
-    bvh_arity: int = 4          # wide-node collapse width for the pallas
-    #                             BVH (ops/pallas/traverse_wide); 4 or 8;
-    #                             0 = binary walks (mk4 layout)
-    bvh_leaf: int = 14          # pallas leaf capacity (tris per leaf
-    #                             row; 14 -> 128-lane rows, 28 -> 256).
+    bvh_leaf: int = 4           # BVH leaf capacity (triangles per leaf;
+    #                             <= 15, the walk kernel's packed count).
     #                             Bigger leaves shrink the interior tree
     #                             (fewer walk steps) at more tests per
     #                             leaf visit
@@ -76,30 +71,6 @@ class RenderConfig:
     #                             positions — set to the expected max
     #                             deformation for mesh-vertex fitting
     #                             (fit.PARAM_PATHS 'mesh_verts')
-    fuse_shadows: bool = True   # megakernel: one fused occlusion walk for
-    #                             all lights (wide layout only)
-    shadow_batch: bool = False  # megakernel: advance the per-light
-    #                             shadow walks in ONE while_loop with
-    #                             independent cursors/stacks — pays the
-    #                             per-iteration loop overhead max(steps)
-    #                             times instead of sum(steps), without
-    #                             the fused walk's union-leaf blowup.
-    #                             Ignored when fuse_shadows=True
-    dbg: str = ""               # megakernel step-overhead decomposition
-    #                             switches (comma-separated; see
-    #                             ops/pallas/mega._kernel) — NOT
-    #                             semantics-preserving; measurement only
-    walk_unroll: int = 1        # megakernel wide walks: stack entries
-    #                             processed per while_loop iteration —
-    #                             amortizes per-iteration loop/branch
-    #                             overhead (the measured cost driver)
-    tri_isect: str = "mt"       # megakernel leaf triangle test: 'mt'
-    #                             (Möller–Trumbore from raw verts) or
-    #                             'bw' (Baldwin–Weber precomputed plane
-    #                             + affine barycentric rows — ~2x fewer
-    #                             vector ops per test, stored shading
-    #                             normal; same hit set to fp rounding).
-    #                             'bw' needs the wide walks (arity >= 2).
     light_cull: float = 0.0     # per-light attenuation culling: skip a
     #                             light's shadow query AND contribution
     #                             for lanes whose conservative bound
@@ -108,35 +79,8 @@ class RenderConfig:
     #                             units; 1.0 = one 8-bit display step).
     #                             Bounded error <= threshold per light
     #                             per segment; 0 = exact. Applied
-    #                             identically in the megakernel, the
-    #                             composed path, and the replay.
-    stale_prune: bool = True    # wide walks (nearest + per-light
-    #                             occlusion): drop stack entries whose
-    #                             recorded entry distance exceeds the
-    #                             running max best_t before popping.
-    #                             Pruning saves visits but costs an
-    #                             inner pop loop PLUS a cross-lane max
-    #                             reduction per step to maintain the
-    #                             bound; r5 decomposition measured the
-    #                             machinery costlier than the visits it
-    #                             saves on the flagship (dbg_noprune
-    #                             80.1ms vs 85.0ms). False skips both.
-    #                             Exact either way (boxes still cull
-    #                             against per-lane best_t).
-    occ_mode: str = "sort"      # occlusion-walk push discipline:
-    #                             'sort' (near-first + prune), 'keys'
-    #                             (prune, no sort network), 'none',
-    #                             'pack' ('none' with per-child hit
-    #                             tests packed into 2 int32 sum
-    #                             reductions instead of 4 mins — the
-    #                             r5 measured win, exact)
-    near_mode: str = "sort"     # nearest-walk push discipline: 'sort'
-    #                             (near-first ordered descent) or
-    #                             'pack' (unordered, packed hit
-    #                             reductions). Both exact — ordering
-    #                             tightens best_t sooner (fewer leaf
-    #                             visits) but costs per-child key
-    #                             reductions + the sort network
+    #                             identically in the composed path, the
+    #                             replay records and the replay.
     tree_cap: int = 4           # tree mode (refraction): max live-lane
     #                             capacity as a multiple of the primary
     #                             ray count. Each level's (reflect,
@@ -152,7 +96,8 @@ class RenderConfig:
     #                             backward recomputes each segment instead
     #                             of storing its residuals — the composed
     #                             differentiable path's memory fix (the
-    #                             1080p residuals otherwise OOM a v5e)
+    #                             1080p residuals are 20+ [N,*] temps
+    #                             per segment otherwise)
     diff: DiffConfig = field(default_factory=DiffConfig)
 
     def with_(self, **kw) -> "RenderConfig":

@@ -1,4 +1,4 @@
-"""Profiling + throughput accounting.
+"""Profiling + device accounting.
 
 The reference has zero instrumentation (no Profiler markers, no timers —
 SURVEY.md §5.1; only gizmo drawing). Here:
@@ -6,13 +6,16 @@ SURVEY.md §5.1; only gizmo drawing). Here:
 * `timed` — block_until_ready-bracketed wall clock;
 * `trace` — context manager around ``jax.profiler.trace`` (XProf/
   TensorBoard dumps);
-* `roofline` — rays/s vs HBM-bandwidth bound estimate, substantiating the
-  per-chip speed-of-light claim.
+* `device_info` / `card` — what a measurement ran on (JAX's view and
+  ``nvidia-smi``'s name and power limit);
+* `device_hbm_gbps` — the published HBM peak of the device, for
+  roofline context (``None`` for a device without one).
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -53,37 +56,33 @@ def trace(logdir: str):
         jax.profiler.stop_trace()
 
 
-# Known per-chip HBM bandwidths (GB/s), for roofline context only.
+def device_info() -> dict:
+    """The default device as JAX reports it."""
+    dev = jax.devices()[0]
+    return {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices())}
+
+
+def card() -> Optional[str]:
+    """``name, power.limit`` of the first GPU from nvidia-smi, or None
+    where there is no nvidia-smi. A card set below its maximum power
+    runs slower under load, so this goes beside every timing."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.strip().splitlines()[0] if out.strip() else None
+
+
+# Published HBM bandwidth (GB/s) by jax device_kind — NVIDIA H100 SXM
+# data sheet. A device not listed has no roofline (null), never a guess.
 _HBM_GBPS = {
-    "v4": 1228.0,
-    "v5e": 819.0,
-    "v5 lite": 819.0,
-    "v5p": 2765.0,
-    "v6e": 1640.0,
+    "NVIDIA H100 80GB HBM3": 3350.0,
 }
 
 
-def device_hbm_gbps(default: float = 819.0) -> float:
-    name = str(jax.devices()[0]).lower()
-    for k, v in _HBM_GBPS.items():
-        if k in name:
-            return v
-    return default
-
-
-def roofline(rays_per_s: float, bytes_per_ray: float) -> dict:
-    """How close is measured throughput to the HBM-bandwidth bound?
-
-    ``bytes_per_ray``: estimated HBM traffic per traced ray (scene reads
-    amortize across the batch; the dominant term is per-ray state + node/
-    triangle gathers for BVH traversal).
-    """
-    bw = device_hbm_gbps() * 1e9
-    bound = bw / max(bytes_per_ray, 1e-9)
-    return {
-        "rays_per_s": rays_per_s,
-        "hbm_gbps": bw / 1e9,
-        "bytes_per_ray": bytes_per_ray,
-        "hbm_bound_rays_per_s": bound,
-        "fraction_of_roofline": rays_per_s / bound,
-    }
+def device_hbm_gbps() -> Optional[float]:
+    return _HBM_GBPS.get(jax.devices()[0].device_kind)

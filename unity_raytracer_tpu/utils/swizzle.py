@@ -1,23 +1,19 @@
 """Pixel-block swizzle: remap row-major pixels into bs x bs screen blocks.
 
-The packet traversal kernels (ops/pallas/traverse_mk*) give each TILE_R-lane
-tile ONE shared cursor, so a tile pays the UNION of its rays' BVH node sets.
-Row-major lanes make a 1024-ray tile half a 1920-wide scanline — long and
-thin, poor spatial coherence. Swizzling lanes into 32x32 screen blocks makes
-each tile a compact square: measured on the flagship mesh100k scene this
-cuts union node visits per tile ~7x for primary rays and lets most shadow
-tiles exit at the root test (scripts/divergence_study.py).
+The BVH walk kernel (ops/pallas/walk.py) runs a block of rays until its
+longest walk ends and fetches node rows for all of them at once, so lanes
+of one block should be spatial neighbours. Row-major lanes make a block a
+strip of one scanline; swizzling lanes into 32x32 screen blocks makes each
+block a compact square whose rays visit much the same nodes.
 
 The reference sorts its pixel loop for cache locality for the same reason
 ("Traverse order swapped for better cache usage",
-Demo-RayTracing/RayTracingSetup.cs:286) — here the "cache line" is the
-packet tile.
+Demo-RayTracing/RayTracingSetup.cs:286).
 
 Two implementations:
 
-* ``block_perm`` — explicit permutation arrays (kept for analysis scripts
-  and equivalence tests). Applying it with gathers costs 0.14-0.18s per
-  [2M,3] take on v5e — measured to be MORE than the traversal it helps.
+* ``block_perm`` — explicit permutation arrays (kept for equivalence
+  tests); applying it costs a gather per array.
 * the production path — rays are GENERATED in block order
   (models/camera.generate_rays_blocks, pure integer lane math) on a
   padded whole-block grid, and ``unswizzle_image`` restores row-major
@@ -51,8 +47,8 @@ def unswizzle_image(rad, width: int, height: int, bs: int):
     if bs <= 1:
         return rad.reshape(height, width, c)
     wp, hp = padded_dims(width, height, bs)
-    # per-channel 4-d transposes: a 5-d transpose with a size-3 minor axis
-    # pays the 128-lane padding tax on TPU; [Hb,bs,Wb,bs] relayouts don't
+    # per-channel 4-d transposes ([Hb,bs,Wb,bs] relayouts) instead of a
+    # 5-d transpose with a size-3 minor axis
     chans = [
         jnp.transpose(rad[:, k].reshape(hp // bs, wp // bs, bs, bs),
                       (0, 2, 1, 3)).reshape(hp, wp)
